@@ -1,0 +1,110 @@
+"""3-D U-Net backbone, mirroring the VoxelMorph U-Net topology.
+
+Counterpart of ``multimodal_registration_tpu/models/unet.py`` (forward only;
+the int8 and z-tap Conv2D paths are not ported):
+
+  * encoder: one 3³ conv + LeakyReLU(0.2) per level, 2x max-pool between
+    levels;
+  * decoder: one 3³ conv + LeakyReLU per level; after each of the first
+    ``len(enc) - nb_upsample_skips`` decoder levels, 2x nearest upsampling
+    and skip concatenation in ``[upsampled, skip]`` order;
+  * remaining ``dec[len(enc):]`` entries are extra convs at the final
+    resolution.
+
+Activations are channels-last ``(B, X, Y, Z, C)`` like the JAX package's;
+the convs see them as NCDHW views with channels-last strides. With
+``nb_upsample_skips >= 1`` the decoder never reads enc_0's full-res
+activation, so enc_0 runs as kernel K1 (``ops/conv_pool.py``), which writes
+only the pooled tensor. The other convs are ``F.conv3d`` (cuDNN), as the JAX
+package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multimodal_registration_torch.ops.conv_pool import conv3_lrelu_pool
+from multimodal_registration_torch.ops.pool import max_pool_2x
+
+
+def _ncdhw(x):
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def _ndhwc(x):
+    return x.permute(0, 2, 3, 4, 1)
+
+
+class ConvBlock(nn.Module):
+    """3³ SAME conv + LeakyReLU(0.2) in the compute ``dtype`` (float32
+    parameters, cast per call like Flax's ``nn.Conv(dtype=...)``)."""
+
+    def __init__(self, cin: int, cout: int, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = nn.Conv3d(cin, cout, 3, padding=1, device=device)
+
+    def forward(self, x):
+        w = self.conv.weight.to(self.dtype)
+        b = self.conv.bias.to(self.dtype)
+        y = F.conv3d(_ncdhw(x.to(self.dtype)), w, b, padding=1)
+        return _ndhwc(F.leaky_relu(y, 0.2))
+
+    def forward_pooled(self, x, impl=None):
+        """``max_pool_2x(forward(x))`` through kernel K1, never writing the
+        full-res activation."""
+        return conv3_lrelu_pool(x.to(self.dtype), self.conv.weight, self.conv.bias,
+                                0.2, impl=impl)
+
+
+def _upsample_nearest_2x(x):
+    # (B, X, Y, Z, C) -> (B, 2X, 2Y, 2Z, C); Keras UpSampling3D parity
+    return _ndhwc(F.interpolate(_ncdhw(x), scale_factor=2, mode="nearest"))
+
+
+class Unet(nn.Module):
+    def __init__(self, in_channels: int, enc_nf, dec_nf, nb_upsample_skips: int = 0,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.enc_nf, self.dec_nf = tuple(enc_nf), tuple(dec_nf)
+        self.nb_upsample_skips = nb_upsample_skips
+        self.dtype = dtype
+        nb_levels = len(self.enc_nf) + 1
+        skip_ch = [in_channels]
+        ch = in_channels
+        for i, f in enumerate(self.enc_nf):
+            self.add_module(f"enc_{i}", ConvBlock(ch, f, dtype, device))
+            ch = f
+            skip_ch.append(f)
+        for i, f in enumerate(self.dec_nf[: nb_levels - 1]):
+            self.add_module(f"dec_{i}", ConvBlock(ch, f, dtype, device))
+            ch = f
+            if i < nb_levels - 1 - nb_upsample_skips:
+                ch += skip_ch.pop()
+        for j, f in enumerate(self.dec_nf[nb_levels - 1:]):
+            self.add_module(f"final_{j}", ConvBlock(ch, f, dtype, device))
+            ch = f
+        self.out_channels = ch
+
+    def forward(self, x, impl=None):
+        x = x.to(self.dtype)
+        nb_levels = len(self.enc_nf) + 1
+        skips = [x]
+        for i in range(len(self.enc_nf)):
+            block = getattr(self, f"enc_{i}")
+            if i == 0 and self.nb_upsample_skips >= 1:
+                x = block.forward_pooled(x, impl=impl)
+                skips.append(None)  # never popped; keeps pop order aligned
+                continue
+            x = block(x)
+            skips.append(x)
+            x = max_pool_2x(x)
+        for i in range(len(self.dec_nf[: nb_levels - 1])):
+            x = getattr(self, f"dec_{i}")(x)
+            if i < nb_levels - 1 - self.nb_upsample_skips:
+                x = torch.cat([_upsample_nearest_2x(x), skips.pop()], dim=-1)
+        for j in range(len(self.dec_nf[nb_levels - 1:])):
+            x = getattr(self, f"final_{j}")(x)
+        return x
