@@ -277,7 +277,8 @@ def load_params_any(path: str, cfg: InferenceConfig) -> dict:
     if not path.endswith(".npz"):
         raise NotImplementedError(
             f"{path!r}: only .npz checkpoints load in the port; Orbax checkpoint "
-            "directories wait for ROADMAP queue 1 item 14 (training)")
+            "directories are not read (ROADMAP queue 1 item 9c): use the flat .npz "
+            "written beside them")
     vxm_cfg = vxm_config_from(cfg)
     with np.load(path) as z:
         flat = dict(z)

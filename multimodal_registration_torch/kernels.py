@@ -146,7 +146,33 @@ WARP_UP2X = Kernel(
     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "multimodal_registration_tpu/ops/warp.py:493",
 )
-KERNELS = (CONV3_LRELU_POOL, WARP_TRILINEAR, WARP_UP2X)
+MAX_POOL_2X_BWD = Kernel(
+    "max_pool_2x_bwd", "pool_bwd.cu", "pool_bwd_launch",
+    # x, g, out, B, X, Y, Z, C, first, is_bf16, stream
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "multimodal_registration_tpu/ops/pallas/pool_bwd.py:102",
+)
+WARP_TRILINEAR_BWD = Kernel(
+    "warp_trilinear_bwd", "warp_bwd.cu", "warp_bwd_launch",
+    # vol, coords, gout, gvol (f32 or null), gcoords (or null), B, X, Y, Z, C,
+    # N, Yo, Zo, coords_are_flow, nearest, is_bf16, stream
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "multimodal_registration_tpu/ops/warp.py:369",
+)
+WARP_LABELS = Kernel(
+    "warp_labels_soft_hard", "warp_labels.cu", "warp_labels_launch",
+    # labels, flow, soft, hard, B, X, Y, Z, L, labels_are_u8, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "multimodal_registration_tpu/ops/warp.py:570",
+)
+WARP_LABELS_BWD = Kernel(
+    "warp_labels_bwd", "warp_labels.cu", "warp_labels_bwd_launch",
+    # g, labels, flow, gflow, B, X, Y, Z, L, labels_are_u8, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "multimodal_registration_tpu/ops/warp.py:601",
+)
+KERNELS = (CONV3_LRELU_POOL, WARP_TRILINEAR, WARP_UP2X, MAX_POOL_2X_BWD,
+           WARP_TRILINEAR_BWD, WARP_LABELS, WARP_LABELS_BWD)
 
 
 def launch_counts() -> dict:

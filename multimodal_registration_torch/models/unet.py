@@ -1,7 +1,7 @@
 """3-D U-Net backbone, mirroring the VoxelMorph U-Net topology.
 
-Counterpart of ``multimodal_registration_tpu/models/unet.py`` (forward only;
-the int8 and z-tap Conv2D paths are not ported):
+Counterpart of ``multimodal_registration_tpu/models/unet.py`` (the int8 and
+z-tap Conv2D paths are not ported):
 
   * encoder: one 3³ conv + LeakyReLU(0.2) per level, 2x max-pool between
     levels;
@@ -14,9 +14,12 @@ the int8 and z-tap Conv2D paths are not ported):
 Activations are channels-last ``(B, X, Y, Z, C)`` like the JAX package's;
 the convs see them as NCDHW views with channels-last strides. With
 ``nb_upsample_skips >= 1`` the decoder never reads enc_0's full-res
-activation, so enc_0 runs as kernel K1 (``ops/conv_pool.py``), which writes
-only the pooled tensor. The other convs are ``F.conv3d`` (cuDNN), as the JAX
-package leaves them to XLA.
+activation, so in inference enc_0 runs as kernel K1 (``ops/conv_pool.py``),
+which writes only the pooled tensor. K1 has no backward: whenever a gradient
+is needed (grad mode on and a parameter or the input requires one) enc_0 is
+the unfused conv + ``max_pool_2x``, as in the JAX trainer. The other convs
+are ``F.conv3d`` (cuDNN), as the JAX package leaves them to XLA. ``pool_tie``
+is the tie rule of the pools' backward (``ops/pool.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch import nn
 
 from multimodal_registration_torch.ops.conv_pool import conv3_lrelu_pool
 from multimodal_registration_torch.ops.pool import max_pool_2x
+from multimodal_registration_torch.ops.warp import needs_grad
 
 
 def _ncdhw(x):
@@ -88,19 +92,21 @@ class Unet(nn.Module):
             ch = f
         self.out_channels = ch
 
-    def forward(self, x, impl=None):
+    def forward(self, x, impl=None, pool_tie="equal"):
         x = x.to(self.dtype)
         nb_levels = len(self.enc_nf) + 1
+        fused_first = (self.nb_upsample_skips >= 1
+                       and not needs_grad(x, *self.parameters()))
         skips = [x]
         for i in range(len(self.enc_nf)):
             block = getattr(self, f"enc_{i}")
-            if i == 0 and self.nb_upsample_skips >= 1:
+            if i == 0 and fused_first:
                 x = block.forward_pooled(x, impl=impl)
                 skips.append(None)  # never popped; keeps pop order aligned
                 continue
             x = block(x)
             skips.append(x)
-            x = max_pool_2x(x)
+            x = max_pool_2x(x, tie=pool_tie, impl=impl)
         for i in range(len(self.dec_nf[: nb_levels - 1])):
             x = getattr(self, f"dec_{i}")(x)
             if i < nb_levels - 1 - self.nb_upsample_skips:

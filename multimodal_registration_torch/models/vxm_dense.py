@@ -8,7 +8,10 @@ moving image. When the integrated field is the half grid, the moved image
 comes from kernel K3 (2x upsample fused into the warp).
 
 Outputs: ``moved``, ``warp`` (the field at int-res, the reference
-``predict()`` output), ``flow_fullres`` and ``svf``, all channels-last.
+``predict()`` output), ``flow_fullres`` and ``svf``, all channels-last. The
+trainer's loss reads neither ``moved`` nor, with ``grad_res`` 2,
+``flow_fullres``; PyTorch removes no dead code, so ``forward`` takes
+``with_moved=False`` / ``with_fullres=False`` to leave them out (``None``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from torch import nn
 
 from multimodal_registration_torch.device import full_fp32_convs
 from multimodal_registration_torch.models.unet import Unet, _ncdhw, _ndhwc
+from multimodal_registration_torch.ops.field import smooth_field_batch
 from multimodal_registration_torch.ops.integrate import integrate_svf_batch
 from multimodal_registration_torch.ops.resize import rescale_field
 from multimodal_registration_torch.ops.warp import warp_batch, warp_up2x_batch
@@ -40,7 +44,7 @@ class VxmConfig:
     compute_dtype: str = "bfloat16"
     # type of the gathered values inside scaling and squaring ("" = float32)
     integrate_payload_dtype: str = "bfloat16"
-    # inference-time SVF smoothing; not ported yet (ROADMAP queue 1 item 5)
+    # inference-time SVF smoothing (voxels of the SVF grid) before integration
     svf_smooth_sigma: float = 0.0
     # int8 inference; not ported yet (ROADMAP queue 1 item 12)
     quantize: str = ""
@@ -75,10 +79,6 @@ class VxmDense(nn.Module):
 
     def __init__(self, cfg: VxmConfig = VxmConfig(), device=None):
         super().__init__()
-        if cfg.svf_smooth_sigma > 0:
-            raise NotImplementedError(
-                "svf_smooth_sigma > 0 is not ported yet (ROADMAP queue 1 item 5, "
-                "ops/field.py)")
         if cfg.quantize:
             raise NotImplementedError(
                 "quantize='int8' is not ported yet (ROADMAP queue 1 item 12)")
@@ -94,14 +94,16 @@ class VxmDense(nn.Module):
             self.flow.weight.normal_(0.0, 1e-5)
             self.flow.bias.zero_()
 
-    def forward(self, moving: torch.Tensor, fixed: torch.Tensor, impl=None) -> dict:
+    def forward(self, moving: torch.Tensor, fixed: torch.Tensor, impl=None,
+                with_moved: bool = True, with_fullres: bool = True,
+                pool_tie: str = "equal") -> dict:
         cfg = self.cfg
         inshape = tuple(moving.shape[1:4])
         if any(d % 16 for d in inshape):
             raise ValueError(
                 f"spatial dims must be multiples of 16 (got {inshape}); the "
                 "preprocessing pads to floor16 shapes")
-        feat = self.unet(torch.cat([moving, fixed], dim=-1), impl=impl)
+        feat = self.unet(torch.cat([moving, fixed], dim=-1), impl=impl, pool_tie=pool_tie)
 
         # the flow head is float32; cuDNN would otherwise run it in TF32
         with full_fp32_convs():
@@ -113,6 +115,9 @@ class VxmDense(nn.Module):
             f = svf_shape[0] / svf.shape[1]
             svf = torch.stack([rescale_field(v, f, out_shape=svf_shape) for v in svf])
 
+        if cfg.svf_smooth_sigma > 0:
+            svf = smooth_field_batch(svf, cfg.svf_smooth_sigma)
+
         int_shape = tuple(int(round(d / cfg.int_res)) for d in inshape)
         flow = svf
         if tuple(flow.shape[1:4]) != int_shape:
@@ -121,14 +126,18 @@ class VxmDense(nn.Module):
 
         pos_flow = integrate_svf_batch(flow, cfg.int_steps, self.payload_dtype, impl=impl)
 
-        if tuple(pos_flow.shape[1:4]) != inshape:
+        if not (with_fullres or with_moved):
+            flow_fullres = None
+        elif tuple(pos_flow.shape[1:4]) != inshape:
             factors = tuple(i / c for i, c in zip(inshape, pos_flow.shape[1:4]))
             flow_fullres = torch.stack(
                 [rescale_field(v, factors, out_shape=inshape) for v in pos_flow])
         else:
             flow_fullres = pos_flow
 
-        if tuple(2 * d for d in pos_flow.shape[1:4]) == inshape:
+        if not with_moved:
+            moved = None
+        elif tuple(2 * d for d in pos_flow.shape[1:4]) == inshape:
             moved = warp_up2x_batch(moving.float(), pos_flow, impl=impl)
         else:
             moved = warp_batch(moving.float(), flow_fullres, interp="linear", impl=impl)

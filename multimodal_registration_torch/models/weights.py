@@ -1,4 +1,5 @@
-"""Carry checkpoint weights from the JAX package's format to the port's.
+"""Carry weights, gradients and updated parameters between the JAX package's
+format and the port's.
 
 The JAX package stores parameters flat, one array per key, as written by
 ``train/trainer.py::_flatten_params``: ``params/unet/enc_0/conv/kernel`` of
@@ -85,3 +86,14 @@ def params_to_jax(state_dict: dict) -> dict:
             a = a.transpose(2, 3, 4, 1, 0)
         out["/".join(["params", *parts])] = np.ascontiguousarray(a)
     return out
+
+
+def grads_to_jax(model: torch.nn.Module) -> dict:
+    """The gradients held by ``model``'s parameters in the flat JAX key format
+    and kernel layout (what ``_flatten_params`` gives for ``jax.grad``'s
+    tree), for leaf-by-leaf comparison. A parameter without a gradient
+    raises: it would otherwise pass as a zero."""
+    missing = [n for n, p in model.named_parameters() if p.grad is None]
+    if missing:
+        raise ValueError(f"parameters without a gradient: {missing}")
+    return params_to_jax({n: p.grad for n, p in model.named_parameters()})

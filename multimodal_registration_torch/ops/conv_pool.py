@@ -8,6 +8,11 @@ tensor is written. The operands are rounded to the compute type (the input's
 type: bfloat16 on the flagship path), products summed in float32, the
 float32 bias added, LeakyReLU applied, the 2x2x2 max taken, and the result
 rounded once to the compute type.
+
+The kernel has no backward (neither has the JAX package's: its trainer refuses
+the fused first conv). Asked for a gradient on the card, the wrapper raises;
+``Unet.forward`` takes the unfused ``ConvBlock`` + ``max_pool_2x`` whenever a
+gradient is needed.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch.nn.functional as F
 
 from multimodal_registration_torch import kernels
 from multimodal_registration_torch.device import full_fp32_convs
-from multimodal_registration_torch.ops.warp import use_kernel
+from multimodal_registration_torch.ops.warp import needs_grad, use_kernel
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _HALO = 6 * 10 * 18    # input halo voxels of one block (csrc/conv_pool.cu)
@@ -51,6 +56,11 @@ def conv3_lrelu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if not use_kernel(x, impl):
         return conv3_lrelu_pool_plain(x, w, b, neg_slope)
 
+    if needs_grad(x, w, b):
+        raise NotImplementedError(
+            "conv3_lrelu_pool (kernel K1) is inference-only, it has no backward "
+            "(ROADMAP queue 2, K1 on the tensor cores and its backward): call it "
+            "under torch.no_grad(), or use ConvBlock + max_pool_2x in training")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv3_lrelu_pool: x must be float32 or bfloat16, got {x.dtype}")
     Cout = w.shape[0]

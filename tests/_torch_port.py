@@ -56,3 +56,106 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+# ---- the JAX package's random draws, by following its visible key schedule --
+# ``jax.random`` streams cannot be reproduced by a ``torch.Generator``, so the
+# synthesis parity tests draw with JAX exactly as the JAX function does and
+# hand the arrays to the port's computing part. jax is imported inside the
+# functions: the card tests import this module on a machine without JAX.
+
+def _tt(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def jax_perlin_randoms(key, out_shape, scales, min_std=0.0, max_std=1.0, stds=None):
+    """What ``synth/perlin.py::draw_perlin(key, ...)`` draws: per scale
+    ``key, k_std, k_noise = split(key, 3)``, a uniform std and unit normals."""
+    import jax
+    import jax.numpy as jnp
+
+    from multimodal_registration_torch.synth.perlin import sample_shapes
+
+    scales = [scales] if isinstance(scales, (int, float)) else list(scales)
+    out = {"stds": [], "noises": []}
+    for i, shp in enumerate(sample_shapes(out_shape, scales)):
+        key, k_std, k_noise = jax.random.split(key, 3)
+        std = (jnp.asarray(stds[i], jnp.float32) if stds is not None else
+               jax.random.uniform(k_std, (), minval=min_std, maxval=max_std))
+        out["stds"].append(_tt(std))
+        out["noises"].append(_tt(jax.random.normal(k_noise, shp, jnp.float32)))
+    return out
+
+
+def jax_engine_randoms(key, shape, jcfg):
+    """What ``synth/image_engine.py::_labels_to_image_impl(key, ...)`` draws
+    (its ``split(key, 8)``), as the port's ``draw_engine_randoms`` dict."""
+    import jax
+
+    from multimodal_registration_tpu.synth import image_engine as je
+
+    (k_svf, k_mean, k_std, k_noise, k_blur, k_bias, k_gamma, k_zbg) = jax.random.split(key, 8)
+    L = jcfg.num_labels
+    r = {}
+    if jcfg.vel_std > 0:
+        small = je.reduced_svf_grid(shape, jcfg)
+        div = max(int(jcfg.svf_int_res), 1) if small is not None else 1
+        grid = small if small is not None else tuple(shape)
+        r["svf"] = jax_perlin_randoms(k_svf, (*grid, 3), je._vel_scales(jcfg, div),
+                                      max_std=jcfg.vel_std)
+    r["means"] = _tt(jax.random.uniform(k_mean, (L,), minval=jcfg.mean_min, maxval=jcfg.mean_max))
+    r["stds"] = _tt(jax.random.uniform(k_std, (L,), minval=jcfg.std_min, maxval=jcfg.std_max))
+    r["zero_bg"] = _tt(jax.random.uniform(k_zbg, ()))
+    r["noise"] = _tt(jax.random.normal(k_noise, tuple(shape)))
+    r["blur"] = _tt(jax.random.uniform(k_blur, (), minval=0.0, maxval=jcfg.blur_std))
+    if jcfg.bias_std > 0:
+        r["bias"] = jax_perlin_randoms(k_bias, (*shape, 1), [jcfg.bias_res], max_std=jcfg.bias_std)
+    r["gamma"] = _tt(jax.random.normal(k_gamma, ()))
+    return r
+
+
+def jax_flip_mask(key, ndim=3):
+    """The axes ``synth/augment.py::random_flips(key, ...)`` flips."""
+    import jax
+
+    k_m, k_perm = jax.random.split(key)
+    m = jax.random.randint(k_m, (), 0, ndim + 1)
+    return torch.from_numpy(np.array(jax.random.permutation(k_perm, ndim) < m))
+
+
+def jax_zero_border_box(key, shape, scale=8):
+    """The box ``synth/augment.py::random_zero_borders(key, ...)`` keeps."""
+    import jax
+    import jax.numpy as jnp
+
+    keys = jax.random.split(key, 12)
+    box = []
+    for ax, dim in enumerate(shape[:3]):
+        k_cmin, k_vmin, k_cmax, k_vmax = keys[4 * ax: 4 * ax + 4]
+        lo = jnp.where(jax.random.bernoulli(k_cmin), 0,
+                       jax.random.randint(k_vmin, (), 0, max(dim // scale, 1)))
+        hi = jnp.where(jax.random.bernoulli(k_cmax), dim,
+                       jax.random.randint(k_vmax, (), (scale - 1) * dim // scale, dim))
+        box.append([int(lo), int(hi)])
+    return torch.tensor(box)
+
+
+# ---- the trainer tests' tiny configuration and label maps --------------------
+
+def tiny_train_cfg(tmp_path, **overrides) -> dict:
+    base = dict(
+        in_shape=[16, 16, 16], num_labels=4, num_maps=6, im_scales=[4, 8], def_scales=[4],
+        epochs=2, batch_size=2, batch_size_val=1, save_freq=1, vel_res=4.0, bias_res=8.0,
+        enc=[4, 4, 4, 4], dec=[4, 4, 4, 4, 4, 4], model_dir=str(tmp_path / "models"),
+        log_dir=str(tmp_path / "logs"), label_dir=str(tmp_path / "labels"),
+        save_label=False, compute_dtype="float32", lr=1e-3, verbose=0)
+    base.update(overrides)
+    return base
+
+
+def label_maps(n, seed=9):
+    """``n`` tiny 4-label maps from the port's own generator, on the CPU."""
+    from multimodal_registration_torch.synth.labelmaps import generate_label_maps
+
+    return np.stack(generate_label_maps(torch.Generator().manual_seed(seed), n, (16, 16, 16), 4,
+                                        im_scales=[4, 8], def_scales=[4], device="cpu"))

@@ -116,8 +116,9 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(no_gpu, tmp_path)
 
 
 def test_settings_not_ported_yet_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tvd.VxmDense(tvd.VxmConfig(svf_smooth_sigma=1.0), device="cpu")
+    # svf_smooth_sigma is ported (item 5): the model builds
+    assert tvd.VxmDense(tvd.VxmConfig(enc=(4,) * 4, dec=(4,) * 6, svf_smooth_sigma=1.0),
+                        device="cpu").cfg.svf_smooth_sigma == 1.0
     with pytest.raises(NotImplementedError, match="item 12"):
         tvd.VxmDense(tvd.VxmConfig(quantize="int8"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):

@@ -10,14 +10,25 @@ same order without FMA contraction, so they match exactly (K3: 1e-5 for the
 upsample's sums). K1: float32 atol 1e-5 (a 54-term sum in another order than
 cuDNN's); bf16 output 1 bf16 ulp of the output magnitude (one float32 value
 rounded once, on either side of a rounding boundary after a last-bit
-difference)."""
+difference).
+
+K4 (pool adjoint) repeats its plain versions' compares and one division:
+exact. K5 and K7 sum the same products in another order than autograd
+through the plain forward, and K5's volume gradient is summed with atomics in
+an order that changes from run to run: float32 atol/rtol 1e-5; with a bf16
+payload the plain version scatters in bf16 while K5 sums in float32 and
+rounds once, so they agree within a few bf16 ulp of the largest gradient.
+K6: hard labels exact; soft 1e-6 (the plain version's ``scatter_add`` uses
+atomics on the card)."""
 
 import pytest
 import torch
 
 from multimodal_registration_torch import kernels
 from multimodal_registration_torch.ops import conv_pool as tcp
+from multimodal_registration_torch.ops import pool as tpool
 from multimodal_registration_torch.ops import warp as tw
+from multimodal_registration_torch.ops.integrate import integrate_svf_batch
 
 from _torch_port import bf16_ulp, cuda_device, rand, t  # noqa: F401
 
@@ -95,3 +106,147 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     w = torch.zeros((4, 1, 3, 3, 3), device=cuda_device)
     with pytest.raises(TypeError):
         tcp.conv3_lrelu_pool(vol, w, torch.zeros(4, device=cuda_device))
+
+
+def _tied(shape, seed, dtype, device):
+    """Values on a coarse grid, so that windows hold many exact ties."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return t(rng.integers(-3, 4, size=shape) * 0.5, dtype).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tie", ["equal", "first"])
+def test_k4_pool_bwd_matches_plain_with_ties(cuda_device, dtype, tie):
+    x = _tied((2, 9, 12, 10, 5), 20, dtype, cuda_device)  # odd X: crop and pad
+    g = t(rand((2, 4, 6, 5, 5), 21), dtype).to(cuda_device)
+    before = kernels.MAX_POOL_2X_BWD.launches
+    got = tpool.max_pool_2x_bwd(x, g, tie)
+    want = tpool.max_pool_2x_bwd(x, g, tie, impl="plain")
+    torch.cuda.synchronize()
+    assert kernels.MAX_POOL_2X_BWD.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert float(got[:, 8].abs().max()) == 0.0  # the dropped plane gets no gradient
+
+
+def test_k4_through_autograd(cuda_device):
+    x = _tied((1, 8, 8, 8, 3), 22, torch.float32, cuda_device).requires_grad_()
+    before = kernels.MAX_POOL_2X_BWD.launches
+    tpool.max_pool_2x(x, tie="first").square().sum().backward()
+    assert kernels.MAX_POOL_2X_BWD.launches == before + 1
+    xp = x.detach().clone().requires_grad_()
+    tpool.max_pool_2x(xp, tie="first", impl="plain").square().sum().backward()
+    torch.testing.assert_close(x.grad, xp.grad, atol=0, rtol=0)
+
+
+def _grads(fn, *inputs):
+    leaves = [i.detach().clone().requires_grad_() for i in inputs]
+    out = fn(*leaves)
+    w = torch.linspace(0.5, 1.5, out.numel(), device=out.device).reshape(out.shape)
+    (out.float() * w).sum().backward()
+    return [l.grad for l in leaves]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_warp_backward_matches_plain(cuda_device, dtype):
+    vol = t(rand((2, 12, 10, 14, 3), 30), dtype).to(cuda_device)
+    flow = t(rand((2, 12, 10, 14, 3), 31, low=-6.0, high=6.0)).to(cuda_device)
+    before = kernels.WARP_TRILINEAR_BWD.launches
+    gv, gf = _grads(lambda v, f: tw.warp_batch(v, f), vol, flow)
+    torch.cuda.synchronize()
+    assert kernels.WARP_TRILINEAR_BWD.launches == before + 1
+    pv, pf = _grads(lambda v, f: tw.warp_batch(v, f, impl="plain"), vol, flow)
+    assert gv.dtype == dtype and gf.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(gv, pv, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(gf, pf, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(gv.float(), pv.float(), rtol=0,
+                                   atol=4 * bf16_ulp(pv.float().abs().max()))
+        torch.testing.assert_close(gf, pf, atol=1e-4, rtol=1e-4)
+
+
+def test_k5_zero_flow_clip_gradient_is_one_half_on_the_bound(cuda_device):
+    vol = t(rand((1, 6, 6, 6, 1), 32)).to(cuda_device)
+    flow = torch.zeros((1, 6, 6, 6, 3), device=cuda_device)
+    (gf,) = _grads(lambda f: tw.warp_batch(vol, f), flow)
+    (pf,) = _grads(lambda f: tw.warp_batch(vol, f, impl="plain"), flow)
+    torch.testing.assert_close(gf, pf, atol=1e-6, rtol=1e-6)
+    # at x = 0 the coordinate sits on the lower bound: half of (v[1] - v[0])
+    w = torch.linspace(0.5, 1.5, vol.numel(), device=cuda_device).reshape(vol.shape)
+    want = 0.5 * (vol[0, 1, 2, 2, 0] - vol[0, 0, 2, 2, 0]) * w[0, 0, 2, 2, 0]
+    torch.testing.assert_close(gf[0, 0, 2, 2, 0], want, atol=1e-6, rtol=1e-6)
+
+
+def test_k5_flow_only_and_nearest(cuda_device):
+    vol = t(rand((1, 8, 8, 8, 2), 33)).to(cuda_device)
+    flow = t(rand((1, 8, 8, 8, 3), 34, low=-2.0, high=2.0)).to(cuda_device)
+    (gf,) = _grads(lambda f: tw.warp_batch(vol, f), flow)          # volume needs none
+    (pf,) = _grads(lambda f: tw.warp_batch(vol, f, impl="plain"), flow)
+    torch.testing.assert_close(gf, pf, atol=1e-5, rtol=1e-5)
+    (gv,) = _grads(lambda v: tw.warp_batch(v, flow, interp="nearest"), vol)
+    (pv,) = _grads(lambda v: tw.warp_batch(v, flow, interp="nearest", impl="plain"), vol)
+    torch.testing.assert_close(gv, pv, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("payload", [None, torch.bfloat16])
+def test_f4_integration_is_differentiable_on_the_card(cuda_device, payload):
+    vel = t(rand((1, 12, 12, 12, 3), 35, 1.5)).to(cuda_device)
+    (gk,) = _grads(lambda v: integrate_svf_batch(v, 4, payload), vel)
+    (gp,) = _grads(lambda v: integrate_svf_batch(v, 4, payload, impl="plain"), vel)
+    assert gk is not None and float(gk.abs().max()) > 0
+    tol = 1e-4 if payload is None else 0.05 * float(gp.abs().max())
+    torch.testing.assert_close(gk, gp, atol=tol, rtol=1e-4)
+
+
+def test_f4_inference_kernels_raise_when_asked_for_a_gradient(cuda_device):
+    x = torch.zeros((1, 8, 8, 8, 2), device=cuda_device)
+    w = torch.zeros((4, 2, 3, 3, 3), device=cuda_device, requires_grad=True)
+    b = torch.zeros(4, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="K1"):
+        tcp.conv3_lrelu_pool(x, w, b)
+    with torch.no_grad():
+        assert tcp.conv3_lrelu_pool(x, w, b).shape == (1, 4, 4, 4, 4)
+    vol = torch.zeros((1, 8, 8, 8, 1), device=cuda_device)
+    fh = torch.zeros((1, 4, 4, 4, 3), device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K3"):
+        tw.warp_up2x_batch(vol, fh)
+    assert tw.warp_up2x_batch(vol, fh.detach()).shape == vol.shape
+
+
+@pytest.mark.parametrize("ldtype", [torch.uint8, torch.int32])
+def test_k6_k7_warp_labels_match_plain(cuda_device, ldtype):
+    import numpy as np
+
+    L = 7
+    labels = torch.as_tensor(np.random.default_rng(40).integers(0, L, (2, 11, 9, 13)),
+                             dtype=ldtype, device=cuda_device)
+    flow = t(rand((2, 11, 9, 13, 3), 41, low=-5.0, high=5.0)).to(cuda_device)
+    b6, b7 = kernels.WARP_LABELS.launches, kernels.WARP_LABELS_BWD.launches
+    soft, hard = tw.warp_labels_soft_hard_batch(labels, flow, L)
+    psoft, phard = tw.warp_labels_soft_hard_batch(labels, flow, L, impl="plain")
+    torch.cuda.synchronize()
+    assert hard.dtype == torch.int32 and torch.equal(hard, phard)
+    torch.testing.assert_close(soft, psoft, atol=1e-6, rtol=0)
+    torch.testing.assert_close(soft.sum(-1), torch.ones_like(soft[..., 0]), atol=1e-5, rtol=0)
+    (gk,) = _grads(lambda f: tw.warp_onehot_batch(labels, f, L), flow)
+    (gp,) = _grads(lambda f: tw.warp_onehot_batch(labels, f, L, impl="plain"), flow)
+    torch.cuda.synchronize()
+    assert kernels.WARP_LABELS.launches == b6 + 2
+    assert kernels.WARP_LABELS_BWD.launches == b7 + 1
+    torch.testing.assert_close(gk, gp, atol=1e-5, rtol=1e-5)
+
+
+def test_k6_hard_labels_round_half_to_even(cuda_device):
+    import numpy as np
+
+    labels = torch.as_tensor(np.random.default_rng(42).integers(0, 5, (1, 9, 8, 10)),
+                             dtype=torch.uint8, device=cuda_device)
+    flow = torch.full((1, 9, 8, 10, 3), 0.5, device=cuda_device)
+    soft, hard = tw.warp_labels_soft_hard_batch(labels, flow, 5)
+    _, phard = tw.warp_labels_soft_hard_batch(labels, flow, 5, impl="plain")
+    assert torch.equal(hard, phard)
+    assert int(hard[0, 2, 2, 2]) == int(labels[0, 2, 2, 2])  # 2.5 rounds to 2
+    assert int(hard[0, 1, 1, 1]) == int(labels[0, 2, 2, 2])  # 1.5 rounds to 2
