@@ -7,14 +7,17 @@
 Phases (any failure exits non-zero):
   1. build the hand-written kernels (csrc/*.cu, one nvcc each, in parallel);
   2. hold each of the seven kernels against its plain PyTorch version on the
-     card, at the shapes of the flagship forward and of a training step, and
-     check that the inference-only kernels refuse to be differentiated;
+     card, at the shapes of the flagship forward and of a training step (K2
+     and K5 also through their fused squaring step: forward exact, backward,
+     the 5-step integration and its device launches), and check that the
+     inference-only kernels refuse to be differentiated;
   3. the flagship forward (VxmDense enc [64]x4 / dec [64]x6, int_steps 5,
      svf_res = int_res = 2, bf16) on the in-repo checkpoint at
      (1, 160, 160, 192, 1): kernel path against the plain path, launch
      counts per forward, ms per forward, pairs/s, peak memory, and each
-     kernel's time beside its bound, its plain version and a PyTorch
-     yardstick that the port never calls;
+     kernel's wrapper time, device time and device operations per call
+     beside its bound, its plain version and a PyTorch yardstick that the
+     port never calls;
   4. ``register()`` end to end on a synthetic 1 mm NIfTI pair of that size;
   5. training: one loss-and-backward of the flagship model at full width on
      a fixed synthesised batch, through the kernels against the same through
@@ -124,10 +127,15 @@ class Timer:
         return statistics.median(times)
 
 
-def profile_calls(fn, what, n=3, top=10):
-    """Where the device time of ``fn()`` goes: ``torch.profiler`` over ``n``
-    calls, device time by kernel per call, and the device's busy share of
-    the wall time (kernel time summed / wall time)."""
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _profiled(fn, n):
+    """Run ``fn`` ``n`` times under ``torch.profiler`` after one warm call.
+    Returns the device-side entries (kernels, copies, memsets; operator
+    entries on the host would count their kernels' time a second time) and
+    the wall time per call in ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -139,22 +147,57 @@ def profile_calls(fn, what, n=3, top=10):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side entries only (kernels, copies): operator entries on the
-    # host would count their kernels' time a second time
+        time.sleep(0.002)  # let the last device records reach the profiler
     events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3 / n
+              if str(getattr(e, "device_type", "")).endswith("CUDA") and _dev_us(e) > 0]
+    return events, wall_ms
+
+
+def device_time(fn, what=None, n=10):
+    """Device time of everything one call of ``fn`` enqueues, from
+    ``torch.profiler``: ``(ms per call, device operations per call, rows)``,
+    a row ``(ms, launches per call, name)`` for each operation; with ``what``
+    the rows are printed. ``(None, None, [])`` without a card. The profiler
+    can miss the first device records of a window, so the window is made long
+    (about 30 ms of calls) and each operation counts with its mean duration,
+    as often per call as it was seen, rounded."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None, None, []
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    n = min(1000, max(n, int(0.03 / max(time.perf_counter() - t0, 1e-6))))
+    events, _ = _profiled(fn, n)
+    check(bool(events), f"the profiler recorded no device time for {what or fn}")
+    rows = sorted(((_dev_us(e) / e.count / 1e3, max(1, round(e.count / n)), e.key)
+                   for e in events), key=lambda r: -r[0] * r[1])
+    ms = sum(mean * per_call for mean, per_call, _ in rows)
+    ops = sum(per_call for _, per_call, _ in rows)
+    if what:
+        print(f"#   device time of one {what}: {ms:.4f} ms in {ops} operations")
+        for mean, per_call, key in rows:
+            print(f"#     {mean * per_call:9.4f} ms  x{per_call:<3d} {key[:90]}")
+    return ms, ops, [(mean * per_call, per_call, key) for mean, per_call, key in rows]
+
+
+def profile_calls(fn, what, n=3, top=10):
+    """Where the device time of ``fn()`` goes: ``torch.profiler`` over ``n``
+    calls, device time by kernel per call, and the device's busy share of
+    the wall time (kernel time summed / wall time)."""
+    events, wall_ms = _profiled(fn, n)
+    busy_ms = sum(_dev_us(e) for e in events) / 1e3 / n
     if not events:
         print("#   profile: the profiler recorded no device time (not measured)")
         return
     print(f"#   profile ({n} {what}s): device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
-          f"per {what}, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
-    for e in sorted(events, key=dev_us, reverse=True)[:top]:
-        print(f"#     {dev_us(e) / 1e3 / n:9.4f} ms  x{e.count // n:<3d} {e.key[:90]}")
+          f"per {what} in {sum(e.count for e in events) / n:.0f} device operations, "
+          f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+    for e in sorted(events, key=_dev_us, reverse=True)[:top]:
+        print(f"#     {_dev_us(e) / 1e3 / n:9.4f} ms  x{e.count // n:<3d} {e.key[:90]}")
 
 
 def bound(bytes_moved, ops, peak_ops):
@@ -201,15 +244,92 @@ def distinct_corner_labels(labels, flow):
     return int((srt[..., 1:] != srt[..., :-1]).sum()) + X * Y * Z
 
 
-def backward_timer(timer, fn, inputs, cotangent, **kw):
-    """Time of the backward alone: the forward's graph is built once and
-    kept, ``torch.autograd.grad`` runs on it each call."""
+def backward_call(fn, inputs, cotangent):
+    """A call that runs the backward alone: the forward's graph is built
+    once and kept, ``torch.autograd.grad`` runs on it each call."""
     import torch
 
     leaves = [i.detach().requires_grad_() for i in inputs]
     out = fn(*leaves)
     g = cotangent.to(out.dtype)
-    return timer(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), **kw)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def measure(timer, name, bound_, call, plain, library=None, n=10, plain_kw=None):
+    """One kernel's row: ``ms`` (CUDA events around back-to-back calls of the
+    wrapper), ``device_ms`` and ``device_ops`` (what one call enqueues, from
+    the profiler, each operation printed), the plain version and, where one
+    PyTorch call computes the same function, that call's two times."""
+    row = {"ms": timer(call, n=n), "plain_ms": timer(plain, **(plain_kw or {"n": 3, "reps": 3})),
+           "bound": bound_, "library_ms": None, "library_device_ms": None}
+    row["device_ms"], row["device_ops"], _ = device_time(call, f"{name} call")
+    if library is not None:
+        row["library_ms"] = timer(library, n=n)
+        row["library_device_ms"], _, _ = device_time(library, f"{name} yardstick call")
+    return row
+
+
+def fused_step_phase(dev, half, results, rehearsal):
+    """Phase 2, the fused squaring step (K2's ``self_warp_add``) and its
+    backward (K5's) against their plain versions. Forward: exact, the kernel
+    repeats the cast, the warp, the cast back and the add bit for bit.
+    Backward against autograd of the plain version: float32 payload 1e-5 of
+    the largest gradient (the same products summed in another order, through
+    atomics, so the last bits change from run to run); bf16 payload 4 bf16 ulp
+    of the largest gradient (the plain version rounds every contribution to
+    bf16 and scatters in bf16, the kernel sums in float32 and rounds once).
+    With a bf16 payload both are also held against the backward's formula
+    summed in float64 (``self_warp_add_grad_float64``), which has the
+    kernel's roundings of the cotangent and of the volume term and no other:
+    the kernel within 2 bf16 ulp of it, and each side's gap is printed. Where
+    many contributions meet in one voxel (the +-40 field and the constant
+    shift clamp whole slabs to the border) the plain bf16 scatter drifts by
+    more than 4 ulp; there the kernel may differ from it by 4 ulp plus the
+    plain version's own gap to the float64 formula, as measured in this run.
+    The report's ``fused_max_abs_err`` of K5 is the largest error against the
+    float64 formula (bf16 payload) and the plain version (float32 payload)."""
+    import numpy as np
+    import torch
+
+    from multimodal_registration_torch.ops.warp import (
+        self_warp_add_batch, self_warp_add_grad_float64)
+
+    rng = np.random.default_rng(11)
+    odd = (37, 41, 50) if not rehearsal else (9, 7, 10)
+    fields = {
+        "smooth |phi|<=2": smooth_field(half, 2.0, 1, dev),
+        "+-40 (defeats the window)": torch.as_tensor(
+            rng.uniform(-40, 40, (1, *half, 3)).astype(np.float32), device=dev),
+        "constant 10-voxel shift": torch.full((1, *half, 3), 10.0, device=dev),
+        "batch 2": torch.cat([smooth_field(half, 2.0, 12, dev), smooth_field(half, 0.05, 13, dev)]),
+        f"shape {odd} that no tile divides": smooth_field(odd, 3.0, 14, dev),
+    }
+    err_f, err_b = [], []
+    for label, phi in fields.items():
+        cot = torch.as_tensor(rng.normal(size=tuple(phi.shape)).astype(np.float32), device=dev)
+        for payload, name in ((torch.bfloat16, "bf16"), (None, "f32")):
+            err_f.append(compare(
+                f"K2 self_warp_add {name} payload, {label}", self_warp_add_batch(phi, payload),
+                self_warp_add_batch(phi, payload, impl="plain"), 0.0, exact=True))
+            (gk,) = grads_of(lambda f: self_warp_add_batch(f, payload), [phi], cot)
+            (gp,) = grads_of(lambda f: self_warp_add_batch(f, payload, impl="plain"), [phi], cot)
+            m = float(gp.abs().max())
+            what = f"K5 self_warp_add backward {name} payload, {label}"
+            if payload is None:
+                err_b.append(compare(f"{what}, against autograd of the plain version "
+                                     f"(max {m:.3f})", gk, gp, 1e-5 * max(m, 1.0)))
+                continue
+            g64 = self_warp_add_grad_float64(phi, cot, payload)
+            gap_plain = float((gp - g64).abs().max())
+            err_b.append(compare(
+                f"{what}, against the float64 formula (2 bf16 ulp of max {m:.3f}; the "
+                f"plain version's gap to it is {gap_plain:.3e})", gk, g64, 2 * bf16_ulp(m)))
+            heavy = label.startswith(("+-40", "constant"))
+            compare(f"{what}, against autograd of the plain version (4 bf16 ulp"
+                    f"{' + the plain gap' if heavy else ''})", gk, gp,
+                    4 * bf16_ulp(m) + (gap_plain if heavy else 0.0))
+    results["warp_trilinear"]["fused_max_abs_err"] = max(err_f)
+    results["warp_trilinear_bwd"]["fused_max_abs_err"] = max(err_b)
 
 
 TRAIN_WANT = {"conv3_lrelu_pool": 0, "warp_trilinear": 11, "warp_up2x": 0,
@@ -228,7 +348,8 @@ def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
     from multimodal_registration_torch.ops.integrate import integrate_svf_batch
     from multimodal_registration_torch.ops.pool import max_pool_2x_bwd
     from multimodal_registration_torch.ops.warp import (
-        warp_batch, warp_labels_soft_hard_batch, warp_onehot_batch, warp_up2x_batch)
+        self_warp_add_batch, warp_batch, warp_labels_soft_hard_batch, warp_onehot_batch,
+        warp_up2x_batch)
 
     half = tuple(s // 2 for s in shape)
     nfull, nhalf = math.prod(shape), math.prod(half)
@@ -246,14 +367,13 @@ def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
                     max_pool_2x_bwd(x, g, tie), max_pool_2x_bwd(x, g, tie, impl="plain"),
                     0.0, exact=True) for tie in ("equal", "first")]
     results["max_pool_2x_bwd"]["max_abs_err"] = max(errs)
-    t_k4 = timer(lambda: max_pool_2x_bwd(x, g, "equal"))
     t_k4f = timer(lambda: max_pool_2x_bwd(x, g, "first"))
-    t_k4p = timer(lambda: max_pool_2x_bwd(x, g, "equal", impl="plain"), n=3, reps=3)
     xc = x.permute(0, 4, 1, 2, 3)
-    t_k4l = backward_timer(timer, lambda v: F.max_pool3d(v, 2, 2), [xc],
-                           g.permute(0, 4, 1, 2, 3), n=5)
-    b_k4 = bound((2 * x.numel() + g.numel()) * 2, x.numel() * 3, FP32_FLOPS)
-    timing["max_pool_2x_bwd"] = (t_k4, t_k4p, t_k4l, b_k4)
+    timing["max_pool_2x_bwd"] = measure(
+        timer, "max_pool_2x_bwd", bound((2 * x.numel() + g.numel()) * 2, x.numel() * 3, FP32_FLOPS),
+        lambda: max_pool_2x_bwd(x, g, "equal"),
+        lambda: max_pool_2x_bwd(x, g, "equal", impl="plain"),
+        backward_call(lambda v: F.max_pool3d(v, 2, 2), [xc], g.permute(0, 4, 1, 2, 3)), n=5)
     print(f"#   max_pool_2x_bwd tie=first: {t_k4f:.4f} ms")
     del x, g, xc
 
@@ -277,31 +397,92 @@ def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
         if dt == torch.bfloat16:
             vol_b = vol
     results["warp_trilinear_bwd"]["max_abs_err"] = max(errs)
-    t_k5 = backward_timer(timer, lambda v, f: warp_batch(v, f), [vol_b, flow], cot, n=20)
-    t_k5p = backward_timer(timer, lambda v, f: warp_batch(v, f, impl="plain"), [vol_b, flow],
-                           cot, n=3, reps=3)
     hgrid = torch.stack(torch.meshgrid(*[torch.arange(s, dtype=torch.float32, device=dev)
                                          for s in half], indexing="ij"), -1)
     dims = torch.tensor(half, dtype=torch.float32, device=dev) - 1
     gnorm = ((hgrid + flow[0]) / dims * 2 - 1).flip(-1)[None].contiguous()
-    t_k5l = backward_timer(
-        timer, lambda v, gr: F.grid_sample(v, gr, mode="bilinear", padding_mode="border",
-                                           align_corners=True),
+    k5_library = backward_call(
+        lambda v, gr: F.grid_sample(v, gr, mode="bilinear", padding_mode="border",
+                                    align_corners=True),
         [vol_b.float().permute(0, 4, 1, 2, 3).contiguous(), gnorm],
-        cot.permute(0, 4, 1, 2, 3).contiguous(), n=20)
+        cot.permute(0, 4, 1, 2, 3).contiguous())
     # read: bf16 volume and cotangent, f32 flow; written: bf16 grad volume,
     # f32 grad flow; ~60 f32 operations per output value
-    b_k5 = bound(nhalf * 3 * (2 + 2 + 4 + 2 + 4), nhalf * 3 * 60, FP32_FLOPS)
-    timing["warp_trilinear_bwd"] = (t_k5, t_k5p, t_k5l, b_k5)
+    timing["warp_trilinear_bwd"] = measure(
+        timer, "warp_trilinear_bwd",
+        bound(nhalf * 3 * (2 + 2 + 4 + 2 + 4), nhalf * 3 * 60, FP32_FLOPS),
+        backward_call(lambda v, f: warp_batch(v, f), [vol_b, flow], cot),
+        backward_call(lambda v, f: warp_batch(v, f, impl="plain"), [vol_b, flow], cot),
+        k5_library, n=20)
+    # the fused step's backward, on the same field: float32 field, cotangent
+    # and scratch read, float32 gradient written
+    timing["warp_trilinear_bwd"]["fused"] = measure(
+        timer, "self_warp_add backward (K5's fused entry)",
+        bound(nhalf * 3 * 4 * 3, nhalf * 3 * 60, FP32_FLOPS),
+        backward_call(lambda f: self_warp_add_batch(f, torch.bfloat16), [flow], cot),
+        backward_call(lambda f: self_warp_add_batch(f, torch.bfloat16, impl="plain"), [flow], cot),
+        k5_library, n=20)
 
     # F4: the integration is differentiable through K2/K5; K1 and K3 refuse
     vel = smooth_field(half, 3.0, 5, dev)
     (gk,) = grads_of(lambda v: integrate_svf_batch(v, 5, torch.bfloat16), [vel], cot)
     (gp,) = grads_of(lambda v: integrate_svf_batch(v, 5, torch.bfloat16, impl="plain"), [vel], cot)
     check(float(gk.abs().max()) > 0, "F4: the integration's gradient on the card is zero")
-    compare("F4 d integrate_svf_batch / d svf, bf16 payload (5% of max: five bf16 roundings "
-            "of the cotangent in the plain version, none in K5)", gk, gp,
+    for payload, name in ((torch.bfloat16, "bf16"), (None, "f32")):
+        with torch.no_grad():
+            compare(f"integrate_svf_batch, 5 fused steps, {name} payload",
+                    integrate_svf_batch(vel, 5, payload),
+                    integrate_svf_batch(vel, 5, payload, impl="plain"), 0.0, exact=True)
+    compare("F4 d integrate_svf_batch / d svf, bf16 payload (5% of max: the plain version "
+            "scatters in bf16 at each of five steps, K5 sums in float32)", gk, gp,
             0.05 * float(gp.abs().max()))
+    # the whole integration of a forward and of a step's backward, as the
+    # paths run it: device launches and device time
+    def integration_forward():
+        with torch.inference_mode():
+            integrate_svf_batch(vel, 5, torch.bfloat16)
+
+    integ = {"fwd_ms": timer(integration_forward, n=5)}
+    integ["fwd_device_ms"], integ["fwd_device_ops"], fwd_rows = device_time(
+        integration_forward, "5-step integration, forward")
+    integration_backward = backward_call(lambda v: integrate_svf_batch(v, 5, torch.bfloat16),
+                                         [vel], cot)
+    integ["bwd_ms"] = timer(integration_backward, n=5)
+    integ["bwd_device_ms"], integ["bwd_device_ops"], bwd_rows = device_time(
+        integration_backward, "5-step integration, backward")
+
+    # the same integration through the general kernels alone, as it ran before
+    # the fused step existed: cast, K2, cast back and add, four launches a step
+    def unfused(v):
+        phi = v / 32.0
+        for _ in range(5):
+            phi = phi + warp_batch(phi.bfloat16(), phi).float()
+        return phi
+
+    def unfused_forward():
+        with torch.inference_mode():
+            unfused(vel)
+
+    integ["unfused_fwd_device_ms"], integ["unfused_fwd_device_ops"], _ = device_time(
+        unfused_forward, "5-step integration through the general K2, forward")
+    integ["unfused_bwd_device_ms"], integ["unfused_bwd_device_ops"], _ = device_time(
+        backward_call(unfused, [vel], cot),
+        "5-step integration through the general K2 and K5, backward")
+
+    def launches_of(rows, *names):
+        return sum(per_call for _, per_call, key in rows if any(n in key for n in names))
+
+    if dev.type == "cuda":
+        steps_fwd = launches_of(fwd_rows, "self_warp_add_kernel")
+        steps_bwd = launches_of(bwd_rows, "self_warp_add_bwd_kernel", "self_warp_add_finish_kernel")
+        memsets = launches_of(bwd_rows, "Memset", "FillFunctor")
+        print(f"#   the 5 squaring steps of a forward: {steps_fwd} device launches (of "
+              f"{integ['fwd_device_ops']} in the integration; the rest is v / 32); their "
+              f"backward: {steps_bwd} kernels (A and B per step) and {memsets} memsets (of "
+              f"{integ['bwd_device_ops']} operations)")
+        check(steps_fwd == 5 and steps_bwd == 10 and memsets == 0,
+              "the squaring steps are not one launch each forward and two backward")
+    print(f"#   integration (5 squaring steps, bf16 payload, {tuple(vel.shape)}): {json.dumps(integ)}")
     if dev.type == "cuda":
         w = torch.zeros((4, 2, 3, 3, 3), device=dev, requires_grad=True)
         for label, call in (
@@ -340,22 +521,29 @@ def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
     results["warp_labels_bwd"]["max_abs_err"] = compare(
         f"K7 warp_labels_bwd grad flow (max {float(gp.abs().max()):.3f})", gk, gp,
         1e-5 * max(float(gp.abs().max()), 1.0))
-    with torch.no_grad():
-        t_k6 = timer(lambda: warp_labels_soft_hard_batch(labels, lflow, L))
-        t_k6p = timer(lambda: warp_labels_soft_hard_batch(labels, lflow, L, impl="plain"),
-                      n=2, reps=3)
-    t_k7 = backward_timer(timer, lambda f: warp_onehot_batch(labels, f, L), [lflow], lcot)
-    t_k7p = backward_timer(timer, lambda f: warp_onehot_batch(labels, f, L, impl="plain"),
-                           [lflow], lcot, n=2, reps=3)
-    b_k6 = bound(nfull * (1 + 12 + 4 * L + 4), nfull * (40 + 8 * L), FP32_FLOPS)
+    def no_grad(fn):
+        def call():
+            with torch.no_grad():
+                return fn()
+        return call
+
+    timing["warp_labels_soft_hard"] = measure(
+        timer, "warp_labels_soft_hard",
+        bound(nfull * (1 + 12 + 4 * L + 4), nfull * (40 + 8 * L), FP32_FLOPS),
+        no_grad(lambda: warp_labels_soft_hard_batch(labels, lflow, L)),
+        no_grad(lambda: warp_labels_soft_hard_batch(labels, lflow, L, impl="plain")),
+        plain_kw={"n": 2, "reps": 3})
     # K7 reads of its cotangent only the entries at the corner labels: count
     # what this run's labels and flow need, not all L entries of every voxel
     needed = distinct_corner_labels(labels, lflow)
     print(f"#   K7 reads {needed / nfull:.3f} cotangent entries per voxel of {L} "
           "(distinct corner labels)")
-    b_k7 = bound(4 * needed + nfull * (1 + 12 + 12), nfull * 80, FP32_FLOPS)
-    timing["warp_labels_soft_hard"] = (t_k6, t_k6p, None, b_k6)
-    timing["warp_labels_bwd"] = (t_k7, t_k7p, None, b_k7)
+    timing["warp_labels_bwd"] = measure(
+        timer, "warp_labels_bwd",
+        bound(4 * needed + nfull * (1 + 12 + 12), nfull * 80, FP32_FLOPS),
+        backward_call(lambda f: warp_onehot_batch(labels, f, L), [lflow], lcot),
+        backward_call(lambda f: warp_onehot_batch(labels, f, L, impl="plain"), [lflow], lcot),
+        plain_kw={"n": 2, "reps": 3})
 
 
 def training_phase(dev, shape, timer, rehearsal, tmp):
@@ -493,7 +681,7 @@ def main() -> None:
         from multimodal_registration_torch.models.vxm_dense import VxmDense
         from multimodal_registration_torch.ops.conv_pool import conv3_lrelu_pool
         from multimodal_registration_torch.ops.warp import (
-            sample, warp_batch, warp_up2x_batch)
+            clear_scratch, sample, self_warp_add_batch, warp_batch, warp_up2x_batch)
         from multimodal_registration_torch.utils import nifti
     except ImportError as e:
         fail(f"the port's package is not next to this script ({e})")
@@ -559,6 +747,7 @@ def main() -> None:
     errs.append(compare("K2 warp_trilinear f32, absolute coords (sample)",
                         sample(img, coords), sample(img, coords, impl="plain"), 1e-5))
     results["warp_trilinear"]["max_abs_err"] = max(errs)
+    fused_step_phase(dev, half, results, rehearsal)
 
     mov_img = torch.as_tensor(rng.random((1, *shape, 1)).astype(np.float32), device=dev)
     fh = smooth_field(half, 3.0, 2, dev)
@@ -568,6 +757,9 @@ def main() -> None:
 
     timing = {}
     training_kernels_phase(dev, shape, timer, results, timing, rehearsal)
+    # K5's cached scratch buffers of phase 2 would count in the forward's peak
+    # memory; a serving process, which runs no backward, has none
+    clear_scratch()
 
     # ---- 3. the flagship forward --------------------------------------------
     print("# phase 3: flagship forward", flush=True)
@@ -626,25 +818,22 @@ def main() -> None:
     wk = model.unet.enc_0.conv.weight.detach()
     bk = model.unet.enc_0.conv.bias.detach()
     phi_k = out_k["warp"].contiguous()
+    def inference(fn):
+        def call():
+            with torch.inference_mode():
+                return fn()
+        return call
+
     with torch.inference_mode():
-        t_k1 = timer(lambda: conv3_lrelu_pool(xk, wk, bk))
-        t_k1p = timer(lambda: conv3_lrelu_pool(xk, wk, bk, impl="plain"), n=3)
         xc = xk.permute(0, 4, 1, 2, 3)
         wkb, bkb = wk.bfloat16(), bk.bfloat16()
-        t_k1l = timer(lambda: F.max_pool3d(F.leaky_relu(F.conv3d(xc, wkb, bkb, padding=1), 0.2), 2))
         pb = phi_k.bfloat16()
-        t_k2 = timer(lambda: warp_batch(pb, phi_k), n=20)
-        t_k2p = timer(lambda: warp_batch(pb, phi_k, impl="plain"), n=5)
         # grid_sample's grid is (z, y, x)-ordered and normalised to [-1, 1]
         hgrid = torch.stack(torch.meshgrid(*[torch.arange(s, dtype=torch.float32, device=dev)
                                              for s in half], indexing="ij"), -1)
         dims = torch.tensor(half, dtype=torch.float32, device=dev) - 1
         gnorm = ((hgrid + phi_k[0]) / dims * 2 - 1).flip(-1)[None].contiguous()
         vin = phi_k.permute(0, 4, 1, 2, 3).contiguous()
-        t_k2l = timer(lambda: F.grid_sample(vin, gnorm, mode="bilinear", padding_mode="border",
-                                            align_corners=True), n=20)
-        t_k3 = timer(lambda: warp_up2x_batch(mov_t, phi_k), n=20)
-        t_k3p = timer(lambda: warp_up2x_batch(mov_t, phi_k, impl="plain"), n=5)
 
     nfull, nhalf = math.prod(shape), math.prod(half)
     b_k1 = bound(nfull * 2 * 2 + wk.numel() * 4 + bk.numel() * 4 + nhalf * 64 * 2,
@@ -654,14 +843,44 @@ def main() -> None:
     # output value (8 products, 7 sums, the weights) on the SIMT units
     b_k2 = bound(nhalf * 3 * 4 + nhalf * 3 * 2 * 2, nhalf * 3 * 16, FP32_FLOPS)
     b_k3 = bound(nfull * 4 * 2 + nhalf * 3 * 4, nfull * (16 + 3 * 8), FP32_FLOPS)
-    timing.update({
-        "conv3_lrelu_pool": (t_k1, t_k1p, t_k1l, b_k1),
-        "warp_trilinear": (t_k2, t_k2p, t_k2l, b_k2),
-        "warp_up2x": (t_k3, t_k3p, None, b_k3),
-    })
-    for name, (t, tp, tl, (bms, by)) in timing.items():
-        print(f"#   {name}: {t:.4f} ms kernel, {tp:.4f} ms plain, "
-              f"{'n/a' if tl is None else f'{tl:.4f} ms'} yardstick, bound {bms:.4f} ms ({by})")
+    timing["conv3_lrelu_pool"] = measure(
+        timer, "conv3_lrelu_pool", b_k1,
+        inference(lambda: conv3_lrelu_pool(xk, wk, bk)),
+        inference(lambda: conv3_lrelu_pool(xk, wk, bk, impl="plain")),
+        inference(lambda: F.max_pool3d(F.leaky_relu(F.conv3d(xc, wkb, bkb, padding=1), 0.2), 2)),
+        plain_kw={"n": 3})
+    timing["warp_trilinear"] = measure(
+        timer, "warp_trilinear", b_k2,
+        inference(lambda: warp_batch(pb, phi_k)),
+        inference(lambda: warp_batch(pb, phi_k, impl="plain")),
+        inference(lambda: F.grid_sample(vin, gnorm, mode="bilinear", padding_mode="border",
+                                        align_corners=True)), n=20, plain_kw={"n": 5})
+    k2_library = timing["warp_trilinear"]
+    # the fused step on the same field: float32 field read, float32 field written
+    timing["warp_trilinear"]["fused"] = measure(
+        timer, "self_warp_add (K2's fused entry)",
+        bound(nhalf * 3 * 4 * 2, nhalf * 3 * 18, FP32_FLOPS),
+        inference(lambda: self_warp_add_batch(phi_k, torch.bfloat16)),
+        inference(lambda: self_warp_add_batch(phi_k, torch.bfloat16, impl="plain")),
+        n=20, plain_kw={"n": 5})
+    for key in ("library_ms", "library_device_ms"):  # the same yardstick, timed above
+        timing["warp_trilinear"]["fused"][key] = k2_library[key]
+    timing["warp_up2x"] = measure(
+        timer, "warp_up2x", b_k3,
+        inference(lambda: warp_up2x_batch(mov_t, phi_k)),
+        inference(lambda: warp_up2x_batch(mov_t, phi_k, impl="plain")), n=20, plain_kw={"n": 5})
+
+    def ms_or(v, none="n/a"):
+        return none if v is None else f"{v:.4f} ms"
+
+    rows = dict(timing)
+    for name in ("warp_trilinear", "warp_trilinear_bwd"):
+        rows[f"{name}, fused squaring step"] = timing[name]["fused"]
+    for name, row in rows.items():
+        print(f"#   {name}: {row['ms']:.4f} ms wrapper, {ms_or(row['device_ms'])} device in "
+              f"{row['device_ops']} operations, {row['plain_ms']:.4f} ms plain, "
+              f"{ms_or(row['library_ms'])} yardstick ({ms_or(row['library_device_ms'])} device), "
+              f"bound {row['bound'][0]:.4f} ms ({row['bound'][1]})")
     print(f"#   conv3_lrelu_pool on FP32 SIMT units (this kernel's path): {simt_k1:.4f} ms")
 
     # ---- 4. register() end to end (the main path a user calls) -------------
@@ -715,7 +934,7 @@ def main() -> None:
     # before it: register() for K1-K3, run_training() for K4-K7
     report = []
     for k in kernels.KERNELS:
-        t, tp, tl, (bms, by) = timing[k.name]
+        row = timing[k.name]
         report.append({
             "name": k.name, "route": "cuda",
             "source": f"multimodal_registration_torch/csrc/{k.source}",
@@ -723,9 +942,19 @@ def main() -> None:
             "launches": launches[k.name] if k.name in serving else train_launches[k.name],
             "launches_register": launches[k.name],
             "launches_run_training": train_launches[k.name],
-            "max_abs_err": results[k.name]["max_abs_err"], "ms": t, "plain_ms": tp,
-            "bound_ms": bms, "bound_by": by, "library_ms": tl,
+            "max_abs_err": results[k.name]["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "library_ms": row["library_ms"], "device_ms": row["device_ms"],
+            "device_ops": row["device_ops"], "library_device_ms": row["library_device_ms"],
         })
+        if "fused" in row:  # K2 and K5: the fused squaring step, timed on its own
+            fused = row["fused"]
+            report[-1].update({
+                "fused_max_abs_err": results[k.name]["fused_max_abs_err"],
+                "fused_ms": fused["ms"], "fused_device_ms": fused["device_ms"],
+                "fused_device_ops": fused["device_ops"], "fused_plain_ms": fused["plain_ms"],
+                "fused_bound_ms": fused["bound"][0], "fused_bound_by": fused["bound"][1],
+            })
     print(json.dumps({"kernels": report}))
     print(f"# forward_ms {fwd_ms:.4f} pairs_per_s {1000 / fwd_ms:.4f} peak_mib {peak:.1f} "
           f"train_s_per_step {train_numbers['step_s']:.4f} "

@@ -29,11 +29,32 @@
 // Design: one thread per output voxel, looping over channels; neighbouring
 // threads take neighbouring z, so coordinate reads and output writes are
 // coalesced and corner gathers of neighbours share cache lines.
+//
+// self_warp_add (a second entry of K2): one squaring step of the
+// scaling-and-squaring integration (ops/integrate.py::_integrate),
+//   out = phi + f32(round_T(sum_k w_k * T(phi[corner_k]))),
+// for a float32 field phi (B, X, Y, Z, 3) and payload type T (bf16 or f32),
+// in one launch where the general kernel needs a cast of the field, the warp,
+// a cast back and an add. The field is read once, as coordinates and as
+// payload: a gathered corner is rounded to T in the register, which is what a
+// gather from phi.to(T) gives; the mix keeps sample_point's order and
+// roundings, is rounded once to T, and the add is float32: the step equals
+// the four operations bit for bit. What bounds it: bytes (7.4 MB read and
+// written at (1,80,80,96,3), ~4.4 us at 3.35 TB/s); the field stays in the
+// 50 MB L2 from step to step, so what is left is instruction throughput and
+// latency (24 gathers, a rounding for each with a bf16 payload, and the
+// unfused multiplies and adds of the mix): 10 us on an H100. A block takes a
+// 3-D tile of output voxels (warp_tile.cuh), 4 x 4 x 32 as measured, gathers
+// the 24 corner values through the L1 (a shared-memory window of the field
+// was no faster there) and writes its results through shared memory as
+// 16-byte stores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "warp_tile.cuh"
 
 namespace {
 
@@ -152,13 +173,74 @@ __global__ void __launch_bounds__(THREADS) warp_up2x_kernel(
                out + ((int64_t)b * N + n) * C);
 }
 
+// ---- the fused squaring step ------------------------------------------------
+
+using StepShape = warp_tile::Shape<4, 4, 32, 0, 256>;
+
+template <bool BF16>
+__global__ void __launch_bounds__(StepShape::THREADS) self_warp_add_kernel(
+    const float* __restrict__ phi, float* __restrict__ out, int X, int Y, int Z,
+    int nty, int ntz, int vec) {
+  using S = StepShape;
+  __shared__ __align__(16) float obuf[S::VOX * 3];  // (TX, TY, TZ, 3): the output's tile
+  int tx0, ty0, tz0;
+  warp_tile::tile_origin<S>(nty, ntz, tx0, ty0, tz0);
+  const int nvol = X * Y * Z * 3;
+  const float* pb = phi + blockIdx.y * nvol;
+  for (int v = threadIdx.x; v < S::VOX; v += S::THREADS) {
+    const int lz = v % S::TZ, r = v / S::TZ;
+    const int x = tx0 + r / S::TY, y = ty0 + r % S::TY, z = tz0 + lz;
+    if (x >= X || y >= Y || z >= Z) continue;
+    const float* q = pb + ((x * Y + y) * Z + z) * 3;
+    const float d[3] = {q[0], q[1], q[2]};
+    const warp_tile::Corners k = warp_tile::corners_of(
+        __fadd_rn((float)x, d[0]), __fadd_rn((float)y, d[1]), __fadd_rn((float)z, d[2]),
+        X, Y, Z);
+    // the mix of the corners, each rounded to the payload type at the read
+    float a[3];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int dx = kk >> 2, dy = (kk >> 1) & 1, dz = kk & 1;
+      const float wk = __fmul_rn(__fmul_rn(k.wx[dx], k.wy[dy]), k.wz[dz]);
+      const float* c = pb + ((k.xs[dx] * Y + k.ys[dy]) * Z + k.zs[dz]) * 3;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const float t = __fmul_rn(BF16 ? warp_tile::round_bf16(c[ch]) : c[ch], wk);
+        a[ch] = kk == 0 ? t : __fadd_rn(a[ch], t);
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      obuf[v * 3 + ch] = __fadd_rn(d[ch], BF16 ? warp_tile::round_bf16(a[ch]) : a[ch]);
+  }
+  __syncthreads();
+  warp_tile::move_tile<S, 3, true>(obuf, out + blockIdx.y * nvol, X, Y, Z, tx0, ty0, tz0, vec);
+}
+
 }  // namespace
+
+// One squaring step: phi, out (B, X, Y, Z, 3) float32, out != phi.
+extern "C" int self_warp_add_launch(const void* phi, void* out, int B, int X, int Y, int Z,
+                                    int payload_is_bf16, void* stream) {
+  using S = StepShape;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(phi);
+  float* o = static_cast<float*>(out);
+  const int ntx = (X + S::TX - 1) / S::TX, nty = (Y + S::TY - 1) / S::TY,
+            ntz = (Z + S::TZ - 1) / S::TZ;
+  const int vec = Z % 4 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
+  const dim3 grid(ntx * nty * ntz, B);
+  if (payload_is_bf16)
+    self_warp_add_kernel<true><<<grid, S::THREADS, 0, s>>>(p, o, X, Y, Z, nty, ntz, vec);
+  else
+    self_warp_add_kernel<false><<<grid, S::THREADS, 0, s>>>(p, o, X, Y, Z, nty, ntz, vec);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int warp_launch(const void* vol, const void* coords, void* out,
                            int B, int X, int Y, int Z, int C, int N, int Yo,
                            int Zo, int coords_are_flow, int nearest,
                            int is_bf16, void* stream) {
-  cudaGetLastError();  // clear an unrelated pending error of this runtime
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid((N + THREADS - 1) / THREADS, B);
   const float* cf = static_cast<const float*>(coords);
@@ -177,7 +259,6 @@ extern "C" int warp_launch(const void* vol, const void* coords, void* out,
 extern "C" int warp_up2x_launch(const void* vol, const void* flow_half,
                                 void* out, int B, int X, int Y, int Z, int C,
                                 int is_bf16, void* stream) {
-  cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid((X * Y * Z + THREADS - 1) / THREADS, B);
   const float* ff = static_cast<const float*>(flow_half);

@@ -4,13 +4,16 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes``. Building
 happens at first use, never at import (the CPU tests import every module),
 into ``build/kernels/`` at the root of the checkout, which ``.gitignore``
-lists. A library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is reused. :func:`build`
+lists. A library's file name carries a hash of its source, of the shared
+headers (``csrc/*.cuh``) and of the flags, so an edited source is rebuilt and
+an unchanged one is reused. :func:`build`
 starts one ``nvcc`` per source, all at once.
 
 Every kernel is a :class:`Kernel`. Its ``launches`` counter goes up by one
 where the kernel is launched and nowhere else, so a run can show that its
-main path went through the kernel.
+main path went through the kernel. A kernel may have further C entries in
+its source (another mode of the same function, or a pass that completes it):
+:meth:`Kernel.launch_entry` calls them, counted on the same counter or not.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
@@ -103,28 +108,37 @@ class Kernel:
     """One hand-written kernel: its source, its C launcher and its count."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: list,
-                 replaces: str):
+                 replaces: str, entries: dict | None = None):
         self.name = name
         self.source = source
         self.symbol = symbol
-        self.argtypes = argtypes
         self.replaces = replaces
         self.launches = 0
-        self._fn = None
+        self._argtypes = {symbol: argtypes, **(entries or {})}
+        self._fns = {}
 
-    def launch(self, *args) -> None:
-        """Call the C launcher (which enqueues on the given stream and returns
-        ``cudaGetLastError()``); raise if the launch was refused."""
-        if self._fn is None:
-            fn = getattr(_library(self.source), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = _I
-            self._fn = fn
-        rc = self._fn(*args)
+    def _bind(self, symbol: str):
+        """The C launcher ``symbol``, its argument conversion set up once."""
+        fn = getattr(_library(self.source), symbol)
+        fn.argtypes = self._argtypes[symbol]
+        fn.restype = _I
+        self._fns[symbol] = fn
+        return fn
+
+    def launch_entry(self, symbol: str, *args, count: bool = True) -> None:
+        """Call the C launcher ``symbol`` (which enqueues on the given stream
+        and returns ``cudaGetLastError()``); raise if the launch was refused."""
+        fn = self._fns.get(symbol) or self._bind(symbol)
+        rc = fn(*args)
         if rc != 0:
             msg = _library(self.source).mmreg_error_string(rc).decode()
-            raise RuntimeError(f"{self.name}: CUDA launch failed ({rc}: {msg})")
-        self.launches += 1
+            raise RuntimeError(f"{self.name} ({symbol}): CUDA launch failed ({rc}: {msg})")
+        if count:
+            self.launches += 1
+
+    def launch(self, *args) -> None:
+        """Launch the kernel's main entry."""
+        self.launch_entry(self.symbol, *args)
 
 
 CONV3_LRELU_POOL = Kernel(
@@ -139,6 +153,10 @@ WARP_TRILINEAR = Kernel(
     # is_bf16, stream
     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "multimodal_registration_tpu/ops/warp.py:369",
+    entries={
+        # the fused squaring step: phi, out, B, X, Y, Z, payload_is_bf16, stream
+        "self_warp_add_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
+    },
 )
 WARP_UP2X = Kernel(
     "warp_up2x", "warp.cu", "warp_up2x_launch",
@@ -158,6 +176,15 @@ WARP_TRILINEAR_BWD = Kernel(
     # N, Yo, Zo, coords_are_flow, nearest, is_bf16, stream
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "multimodal_registration_tpu/ops/warp.py:369",
+    entries={
+        # grad (bf16 or f32), scratch, n, is_bf16, stream: rounds the sums, zeroes them
+        "warp_bwd_finish_launch": [_P, _P, _I, _I, _P],
+        # the fused step's backward, kernel A: phi, g, out, scratch, B, X, Y, Z,
+        # payload_is_bf16, stream
+        "self_warp_add_bwd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # kernel B: out, scratch, n, payload_is_bf16, stream
+        "self_warp_add_finish_launch": [_P, _P, _I, _I, _P],
+    },
 )
 WARP_LABELS = Kernel(
     "warp_labels_soft_hard", "warp_labels.cu", "warp_labels_launch",
@@ -188,4 +215,27 @@ def stream_of(t) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:  # the handle without a Stream object around it
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class on_device_of:
+    """Context that makes ``t``'s device current for a launch. When it is
+    current already (the usual case) entering and leaving cost one query."""
+
+    def __init__(self, t):
+        import torch
+
+        self._guard = None
+        if t.device.index != torch.cuda.current_device():
+            self._guard = torch.cuda.device(t.device)
+
+    def __enter__(self):
+        if self._guard is not None:
+            self._guard.__enter__()
+
+    def __exit__(self, *exc):
+        if self._guard is not None:
+            self._guard.__exit__(*exc)

@@ -78,7 +78,7 @@ def conv3_lrelu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     wk = w.to(x.dtype).float().permute(2, 3, 4, 1, 0).reshape(27 * Cin, Cout).contiguous()
     bk = b.float().contiguous()
     out = torch.empty((B, X // 2, Y // 2, Z // 2, Cout), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    with kernels.on_device_of(x):
         kernels.CONV3_LRELU_POOL.launch(
             x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
             B, X, Y, Z, Cin, Cout, float(neg_slope),

@@ -99,7 +99,7 @@ def max_pool_2x_bwd(x: torch.Tensor, g: torch.Tensor, tie: str = "equal",
     x, g = x.contiguous(), g.contiguous()
     out = torch.empty_like(x)
     if x.numel():
-        with torch.cuda.device(x.device):
+        with kernels.on_device_of(x):
             kernels.MAX_POOL_2X_BWD.launch(
                 x.data_ptr(), g.data_ptr(), out.data_ptr(), B, X, Y, Z, C,
                 int(tie == "first"), int(x.dtype == torch.bfloat16), kernels.stream_of(x))

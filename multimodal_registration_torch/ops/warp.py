@@ -1,6 +1,9 @@
 """Dense-displacement spatial transformer: the wrappers of kernels K2
 (``warp_trilinear``), K3 (``warp_up2x``), K5 (``warp_trilinear_bwd``), K6
 (``warp_labels_soft_hard``) and K7 (its backward), with their plain versions.
+K2 and K5 each have a second entry, the fused squaring step of the
+scaling-and-squaring integration and its backward
+(:func:`self_warp_add_batch`).
 
 Counterpart of ``multimodal_registration_tpu/ops/warp.py``. Semantics
 (``vxm.layers.SpatialTransformer``): sample location = identity grid +
@@ -31,11 +34,18 @@ the JAX package's production ("packed") and "gather8" samplers; its
 ``dim-2`` and passes half of the left slope instead (the values agree, the
 gradients at that one coordinate do not), so the parity tests run the JAX
 side with ``MMREG_WARP_MODE=packed``.
+
+K5 sums the volume's gradient in a float32 scratch buffer that this module
+owns, one per device, stream and size, and that is all zeros between two
+backward passes: the kernel that rounds the sums into the gradient zeroes
+them behind it, so a backward pass needs no memset. Sums through atomics
+differ from run to run in the last bits.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from multimodal_registration_torch import kernels
 from multimodal_registration_torch.ops.grid import identity_grid
@@ -109,13 +119,45 @@ def needs_grad(*tensors) -> bool:
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
+# (device index, stream, numel) -> [float32 zeros, in use]: K5's sums
+_SCRATCH: dict = {}
+
+
+def _scratch(like: torch.Tensor, numel: int) -> list:
+    """The zeroed float32 scratch buffer of ``numel`` values for K5 on
+    ``like``'s device and current stream, marked in use. The caller clears
+    the mark once the kernel that zeroes the buffer again is enqueued; a
+    buffer found marked was left dirty by a failed backward and is zeroed."""
+    key = (like.device.index, kernels.stream_of(like), numel)
+    entry = _SCRATCH.get(key)
+    if entry is None:
+        if len(_SCRATCH) >= 8:  # shapes of a run are few; drop the oldest, do not hoard
+            del _SCRATCH[next(iter(_SCRATCH))]
+        entry = _SCRATCH[key] = [torch.zeros(numel, dtype=torch.float32, device=like.device),
+                                 False]
+    elif entry[1]:
+        entry[0].zero_()
+    entry[1] = True
+    return entry
+
+
+def scratch_buffers() -> list:
+    """K5's cached scratch buffers (all zeros between backward passes)."""
+    return [entry[0] for entry in _SCRATCH.values()]
+
+
+def clear_scratch() -> None:
+    """Drop K5's cached scratch buffers (they are made again when needed)."""
+    _SCRATCH.clear()
+
+
 def _launch_warp(vol5, coords, Yo, Zo, coords_are_flow, nearest):
     """Launch K2 on contiguous CUDA tensors: ``vol5 (B, X, Y, Z, C)``,
     ``coords (B, N, 3)`` float32 -> ``(B, N, C)``."""
     B, X, Y, Z, C = vol5.shape
     N = coords.shape[1]
     out = torch.empty((B, N, C), dtype=vol5.dtype, device=vol5.device)
-    with torch.cuda.device(vol5.device):
+    with kernels.on_device_of(vol5):
         kernels.WARP_TRILINEAR.launch(
             vol5.data_ptr(), coords.data_ptr(), out.data_ptr(), B, X, Y, Z, C,
             N, Yo, Zo, int(coords_are_flow), int(nearest),
@@ -134,6 +176,7 @@ class _WarpTrilinear(torch.autograd.Function):
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, gout):
         vol5, coords = ctx.saved_tensors
         Yo, Zo, coords_are_flow, nearest = ctx.meta
@@ -141,22 +184,25 @@ class _WarpTrilinear(torch.autograd.Function):
         N = coords.shape[1]
         want_vol = ctx.needs_input_grad[0]
         want_coords = ctx.needs_input_grad[1] and not nearest
-        gvol = gcoords = None
-        if want_vol:
-            gvol = torch.zeros(vol5.shape, dtype=torch.float32, device=vol5.device)
-        if want_coords:
-            gcoords = torch.empty_like(coords)
-        if want_vol or want_coords:
-            gout = gout.to(vol5.dtype).contiguous()
-            with torch.cuda.device(vol5.device):
-                kernels.WARP_TRILINEAR_BWD.launch(
-                    vol5.data_ptr(), coords.data_ptr(), gout.data_ptr(),
-                    gvol.data_ptr() if want_vol else None,
-                    gcoords.data_ptr() if want_coords else None,
-                    B, X, Y, Z, C, N, Yo, Zo, int(coords_are_flow), int(nearest),
-                    int(vol5.dtype == torch.bfloat16), kernels.stream_of(vol5))
-        if want_vol:
-            gvol = gvol.to(vol5.dtype)  # the float32 sums, rounded once
+        if not (want_vol or want_coords):
+            return None, None, None, None, None, None
+        gvol = torch.empty_like(vol5) if want_vol else None
+        gcoords = torch.empty_like(coords) if want_coords else None
+        gout = gout.contiguous()  # autograd hands it over in the output's type
+        is_bf16 = int(vol5.dtype == torch.bfloat16)
+        with kernels.on_device_of(vol5):
+            stream = kernels.stream_of(vol5)
+            scratch = _scratch(vol5, vol5.numel()) if want_vol else None
+            kernels.WARP_TRILINEAR_BWD.launch(
+                vol5.data_ptr(), coords.data_ptr(), gout.data_ptr(),
+                scratch[0].data_ptr() if want_vol else None,
+                gcoords.data_ptr() if want_coords else None,
+                B, X, Y, Z, C, N, Yo, Zo, int(coords_are_flow), int(nearest), is_bf16, stream)
+            if want_vol:  # the float32 sums, rounded once, and zeroed behind
+                kernels.WARP_TRILINEAR_BWD.launch_entry(
+                    "warp_bwd_finish_launch", gvol.data_ptr(), scratch[0].data_ptr(),
+                    vol5.numel(), is_bf16, stream, count=False)
+                scratch[1] = False
         return gvol, gcoords, None, None, None, None
 
 
@@ -186,6 +232,110 @@ def _warp_trilinear(vol5, coords, out_grid, coords_are_flow, interp, impl):
     args = (vol5, coords, Yo, Zo, bool(coords_are_flow), interp == "nearest")
     # the serving path asks for no gradient and skips autograd's bookkeeping
     return _WarpTrilinear.apply(*args) if needs_grad(vol5, coords) else _launch_warp(*args)
+
+
+def _self_warp_add_plain(phi: torch.Tensor, payload_dtype) -> torch.Tensor:
+    """Plain version of the fused squaring step (and, through autograd, of
+    its backward): cast, warp, cast back, add."""
+    if payload_dtype is not None:
+        inc = warp_batch(phi.to(payload_dtype), phi, interp="linear", impl="plain").float()
+    else:
+        inc = warp_batch(phi, phi, interp="linear", impl="plain")
+    return phi + inc
+
+
+def _launch_self_warp_add(phi, is_bf16):
+    """Launch K2's fused step on a contiguous float32 CUDA field."""
+    B, X, Y, Z, _ = phi.shape
+    out = torch.empty_like(phi)
+    with kernels.on_device_of(phi):
+        kernels.WARP_TRILINEAR.launch_entry(
+            "self_warp_add_launch", phi.data_ptr(), out.data_ptr(), B, X, Y, Z, int(is_bf16),
+            kernels.stream_of(phi))
+    return out
+
+
+def _launch_self_warp_add_bwd(phi, g, is_bf16):
+    """Launch K5's fused step: kernel A (``g + gcoords`` into the result, the
+    volume term's float32 sums into the scratch buffer), then kernel B (adds
+    the sums, rounded once to the payload's type, and zeroes them)."""
+    B, X, Y, Z, _ = phi.shape
+    out = torch.empty_like(phi)
+    with kernels.on_device_of(phi):
+        stream = kernels.stream_of(phi)
+        scratch = _scratch(phi, phi.numel())
+        kernels.WARP_TRILINEAR_BWD.launch_entry(
+            "self_warp_add_bwd_launch", phi.data_ptr(), g.data_ptr(), out.data_ptr(),
+            scratch[0].data_ptr(), B, X, Y, Z, int(is_bf16), stream)
+        kernels.WARP_TRILINEAR_BWD.launch_entry(
+            "self_warp_add_finish_launch", out.data_ptr(), scratch[0].data_ptr(), phi.numel(),
+            int(is_bf16), stream, count=False)
+        scratch[1] = False
+    return out
+
+
+class _SelfWarpAdd(torch.autograd.Function):
+    """The fused squaring step: K2's ``self_warp_add`` forward, K5's backward."""
+
+    @staticmethod
+    def forward(ctx, phi, is_bf16):
+        out = _launch_self_warp_add(phi, is_bf16)
+        ctx.save_for_backward(phi)
+        ctx.is_bf16 = is_bf16
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (phi,) = ctx.saved_tensors
+        return _launch_self_warp_add_bwd(phi, g.float().contiguous(), ctx.is_bf16), None
+
+
+def self_warp_add_grad_float64(phi: torch.Tensor, g: torch.Tensor,
+                               payload_dtype=None) -> torch.Tensor:
+    """The fused squaring step's backward as its formula states it, every sum
+    in float64: ``g + f32(round_T(gvol)) + gcoords`` for the cotangent ``g``,
+    with ``gvol`` the scatter-add of ``w_k * T(g)`` into the corners and
+    ``gcoords`` the gradient through the trilinear weights of the ``T``-rounded
+    field. Coordinates, corners and the clip are those of float32, as in the
+    kernel and the plain version. It is the yardstick that says which of the
+    two is off where they differ: autograd of the plain version rounds every
+    contribution to ``T`` and scatters in ``T``, the kernel sums in float32
+    and rounds once. Runs anywhere; used by tests and ``chip_smoke.py`` only."""
+    B, X, Y, Z, _ = phi.shape
+    T = payload_dtype or torch.float32
+    leaf = phi.detach().requires_grad_()
+    vol = phi.detach().to(T).double().requires_grad_()
+    grid = identity_grid((X, Y, Z), device=phi.device).reshape(1, -1, 3)
+    c = _clip(grid + leaf.reshape(B, -1, 3), X, Y, Z).double()
+    out = _sample_plain(vol, c, "linear")
+    gvol, gcoords = torch.autograd.grad(out, [vol, leaf], g.to(T).double().reshape(B, -1, 3))
+    return g + gvol.to(T).float() + gcoords
+
+
+def self_warp_add_batch(phi: torch.Tensor, payload_dtype=None, impl=None) -> torch.Tensor:
+    """One squaring step of the scaling-and-squaring integration on a batch
+    of float32 displacement fields ``phi (B, X, Y, Z, 3)``:
+    ``phi + warp(phi.to(T), phi).float()`` with ``T = payload_dtype`` (bfloat16
+    or float32; ``None`` is float32), equal bit for bit to those operations.
+    On the card it is one launch of K2's fused entry that reads the field once,
+    and its backward is two launches of K5's."""
+    if phi.ndim != 5 or phi.shape[-1] != 3:
+        raise ValueError(f"phi {tuple(phi.shape)} must be (B, X, Y, Z, 3)")
+    if phi.dtype != torch.float32:
+        raise TypeError(f"self_warp_add: the field must be float32, got {phi.dtype}")
+    if payload_dtype == torch.float32:
+        payload_dtype = None
+    if not use_kernel(phi, impl):
+        return _self_warp_add_plain(phi, payload_dtype)
+    if payload_dtype not in (None, torch.bfloat16):
+        raise TypeError(f"self_warp_add: payload must be float32 or bfloat16, got {payload_dtype}")
+    if phi.numel() >= 2**31:
+        raise ValueError("self_warp_add: tensor too large for 32-bit voxel indices")
+    phi = phi.contiguous()
+    is_bf16 = payload_dtype is torch.bfloat16
+    # the serving path asks for no gradient and skips autograd's bookkeeping
+    return _SelfWarpAdd.apply(phi, is_bf16) if needs_grad(phi) else _launch_self_warp_add(phi, is_bf16)
 
 
 def sample(vol: torch.Tensor, coords: torch.Tensor, interp: str = "linear",
@@ -246,7 +396,7 @@ def warp_up2x_batch(vol: torch.Tensor, flow_half: torch.Tensor, impl=None) -> to
         if B * X * Y * Z * C >= 2**31:
             raise ValueError("warp_up2x: tensor too large for 32-bit voxel indices")
         out = torch.empty_like(v5)
-        with torch.cuda.device(v5.device):
+        with kernels.on_device_of(v5):
             kernels.WARP_UP2X.launch(
                 v5.data_ptr(), fh.data_ptr(), out.data_ptr(), B, X, Y, Z, C,
                 int(v5.dtype == torch.bfloat16), kernels.stream_of(v5))
@@ -303,7 +453,7 @@ class _WarpLabels(torch.autograd.Function):
         B, X, Y, Z = labels.shape
         soft = torch.empty((B, X, Y, Z, num_classes), dtype=torch.float32, device=flow.device)
         hard = torch.empty((B, X, Y, Z), dtype=torch.int32, device=flow.device)
-        with torch.cuda.device(flow.device):
+        with kernels.on_device_of(flow):
             kernels.WARP_LABELS.launch(
                 labels.data_ptr(), flow.data_ptr(), soft.data_ptr(), hard.data_ptr(),
                 B, X, Y, Z, num_classes, int(labels.dtype == torch.uint8),
@@ -319,7 +469,7 @@ class _WarpLabels(torch.autograd.Function):
         B, X, Y, Z = labels.shape
         gflow = torch.empty_like(flow)
         gsoft = gsoft.float().contiguous()
-        with torch.cuda.device(flow.device):
+        with kernels.on_device_of(flow):
             kernels.WARP_LABELS_BWD.launch(
                 gsoft.data_ptr(), labels.data_ptr(), flow.data_ptr(), gflow.data_ptr(),
                 B, X, Y, Z, ctx.num_classes, int(labels.dtype == torch.uint8),

@@ -19,7 +19,19 @@ an order that changes from run to run: float32 atol/rtol 1e-5; with a bf16
 payload the plain version scatters in bf16 while K5 sums in float32 and
 rounds once, so they agree within a few bf16 ulp of the largest gradient.
 K6: hard labels exact; soft 1e-6 (the plain version's ``scatter_add`` uses
-atomics on the card)."""
+atomics on the card).
+
+The fused squaring step (``self_warp_add_batch``, a second entry of K2 and of
+K5): the forward repeats the cast, the warp, the cast back and the add bit for
+bit: exact. Its backward against autograd of the plain version: float32
+payload 1e-5 of the largest gradient (another summation order, atomics); bf16
+payload 4 bf16 ulp of the largest gradient (the plain version rounds every
+contribution to bf16 and scatters in bf16), and 2 bf16 ulp against the
+backward's formula summed in float64 (``self_warp_add_grad_float64``), which
+has the kernel's two roundings and no other. On the +-40 field and the
+constant shift many contributions meet in the border voxels and the plain
+bf16 scatter drifts: there the kernel may differ from it by 4 ulp plus the
+plain version's own gap to the float64 formula."""
 
 import pytest
 import torch
@@ -250,3 +262,144 @@ def test_k6_hard_labels_round_half_to_even(cuda_device):
     assert torch.equal(hard, phard)
     assert int(hard[0, 2, 2, 2]) == int(labels[0, 2, 2, 2])  # 2.5 rounds to 2
     assert int(hard[0, 1, 1, 1]) == int(labels[0, 2, 2, 2])  # 1.5 rounds to 2
+
+
+def _fused_fields(device):
+    """Fields for the fused step: name -> (B, X, Y, Z, 3) float32 on the card."""
+    return {
+        "smooth": t(rand((1, 24, 20, 32, 3), 50, 0.8)).to(device),
+        "pm40": t(rand((1, 24, 20, 32, 3), 51, low=-40.0, high=40.0)).to(device),
+        "shift10": torch.full((1, 24, 20, 32, 3), 10.0, device=device),
+        "batch2": t(rand((2, 16, 16, 16, 3), 52, 1.5)).to(device),
+        "indivisible": t(rand((1, 13, 9, 18, 3), 53, 2.0)).to(device),  # Z % 4 != 0: scalar path
+        "indivisible_z4": t(rand((2, 11, 7, 20, 3), 54, 2.0)).to(device),
+    }
+
+
+FIELDS = ["smooth", "pm40", "shift10", "batch2", "indivisible", "indivisible_z4"]
+
+
+@pytest.mark.parametrize("payload", [None, torch.bfloat16])
+@pytest.mark.parametrize("field", FIELDS)
+def test_fused_step_forward_is_exact(cuda_device, payload, field):
+    phi = _fused_fields(cuda_device)[field]
+    before = kernels.WARP_TRILINEAR.launches
+    got = tw.self_warp_add_batch(phi, payload)
+    torch.cuda.synchronize()
+    assert kernels.WARP_TRILINEAR.launches == before + 1
+    assert got.dtype == torch.float32 and got.data_ptr() != phi.data_ptr()
+    torch.testing.assert_close(got, tw.self_warp_add_batch(phi, payload, impl="plain"),
+                               atol=0, rtol=0)
+
+
+def _fused_cotangent(phi):
+    return torch.linspace(-1.0, 1.5, phi.numel(), device=phi.device).reshape(phi.shape)
+
+
+def _fused_grad(phi, payload, impl=None):
+    leaf = phi.detach().clone().requires_grad_()
+    tw.self_warp_add_batch(leaf, payload, impl=impl).backward(_fused_cotangent(phi))
+    return leaf.grad
+
+
+@pytest.mark.parametrize("payload", [None, torch.bfloat16])
+@pytest.mark.parametrize("field", FIELDS)
+def test_fused_step_backward_matches_plain(cuda_device, payload, field):
+    phi = _fused_fields(cuda_device)[field]
+    before = kernels.WARP_TRILINEAR_BWD.launches
+    got = _fused_grad(phi, payload)
+    torch.cuda.synchronize()
+    assert kernels.WARP_TRILINEAR_BWD.launches == before + 1  # kernel B is not counted
+    want = _fused_grad(phi, payload, impl="plain")
+    m = float(want.abs().max())
+    if payload is None:
+        torch.testing.assert_close(got, want, atol=1e-5 * max(m, 1.0), rtol=0)
+        return
+    exact = tw.self_warp_add_grad_float64(phi, _fused_cotangent(phi), payload)
+    torch.testing.assert_close(got, exact, atol=2 * bf16_ulp(m), rtol=0)
+    gap_plain = float((want - exact).abs().max()) if field in ("pm40", "shift10") else 0.0
+    torch.testing.assert_close(got, want, atol=4 * bf16_ulp(m) + gap_plain, rtol=0)
+
+
+def test_fused_step_zero_field_gradient(cuda_device):
+    phi = torch.zeros((1, 6, 6, 8, 3), device=cuda_device)
+    torch.testing.assert_close(_fused_grad(phi, None), _fused_grad(phi, None, impl="plain"),
+                               atol=1e-6, rtol=0)
+    # x-displacement zero on the border planes, the rest random: one half of the
+    # slope on the lower bound, none on the far bound
+    phi = t(rand((1, 6, 6, 8, 3), 55, 1.0)).to(cuda_device)
+    phi[0, 0, :, :, 0] = 0.0
+    phi[0, -1, :, :, 0] = 0.0
+    torch.testing.assert_close(_fused_grad(phi, None), _fused_grad(phi, None, impl="plain"),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_scratch_is_zero_after_a_backward_and_a_second_backward_agrees(cuda_device):
+    phi = _fused_fields(cuda_device)["smooth"]
+    first = _fused_grad(phi, torch.bfloat16)
+    torch.cuda.synchronize()
+    buffers = tw.scratch_buffers()
+    assert buffers and all(float(b.abs().max()) == 0.0 for b in buffers)
+    second = _fused_grad(phi, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert all(float(b.abs().max()) == 0.0 for b in tw.scratch_buffers())
+    # the same sums through atomics in another order: last bits of float32,
+    # at most one bf16 rounding flipped
+    torch.testing.assert_close(first, second, rtol=0,
+                               atol=bf16_ulp(float(first.abs().max())))
+    # the general backward shares the mechanism
+    vol = t(rand((1, 12, 10, 16, 2), 56), torch.bfloat16).to(cuda_device)
+    flow = t(rand((1, 12, 10, 16, 3), 57, 2.0)).to(cuda_device)
+    _grads(lambda v, f: tw.warp_batch(v, f), vol, flow)
+    torch.cuda.synchronize()
+    assert all(float(b.abs().max()) == 0.0 for b in tw.scratch_buffers())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [1, 2, 4, 5])
+def test_general_backward_for_other_channel_counts(cuda_device, dtype, channels):
+    """C != 3 goes through the general kernel: its tiled scatter up to four
+    channels, one atomic per contribution beyond."""
+    vol = t(rand((2, 13, 10, 16, channels), 58), dtype).to(cuda_device)
+    flow = t(rand((2, 13, 10, 16, 3), 59, low=-5.0, high=5.0)).to(cuda_device)
+    gv, gf = _grads(lambda v, f: tw.warp_batch(v, f), vol, flow)
+    pv, pf = _grads(lambda v, f: tw.warp_batch(v, f, impl="plain"), vol, flow)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(gv, pv, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(gf, pf, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(gv.float(), pv.float(), rtol=0,
+                                   atol=4 * bf16_ulp(pv.float().abs().max()))
+        torch.testing.assert_close(gf, pf, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("grid", [(16, 12, 20), (8, 6, 10)])
+def test_general_backward_tiled_and_untiled_agree_with_plain(cuda_device, grid):
+    """A field on the volume's own grid takes the tiled scatter, a field on
+    another grid the kernel with one atomic per contribution."""
+    vol = t(rand((1, 16, 12, 20, 3), 60)).to(cuda_device)
+    flow = t(rand((1, *grid, 3), 61, low=-30.0, high=30.0)).to(cuda_device)
+    gv, gf = _grads(lambda v, f: tw.warp_batch(v, f), vol, flow)
+    pv, pf = _grads(lambda v, f: tw.warp_batch(v, f, impl="plain"), vol, flow)
+    torch.testing.assert_close(gv, pv, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(gf, pf, atol=1e-5, rtol=1e-5)
+
+
+def test_integration_through_the_fused_steps_is_exact_and_counts_one_launch_a_step(cuda_device):
+    vel = t(rand((2, 16, 12, 20, 3), 62, 2.0)).to(cuda_device)
+    for payload in (None, torch.bfloat16):
+        before = kernels.WARP_TRILINEAR.launches
+        got = integrate_svf_batch(vel, 5, payload)
+        torch.cuda.synchronize()
+        assert kernels.WARP_TRILINEAR.launches == before + 5
+        torch.testing.assert_close(got, integrate_svf_batch(vel, 5, payload, impl="plain"),
+                                   atol=0, rtol=0)
+
+
+def test_fused_step_refuses_what_the_kernel_does_not_take(cuda_device):
+    phi = torch.zeros((1, 8, 8, 8, 3), device=cuda_device)
+    with pytest.raises(TypeError):
+        tw.self_warp_add_batch(phi, torch.float16)
+    with pytest.raises(TypeError):
+        tw.self_warp_add_batch(phi.double())
