@@ -24,11 +24,26 @@
 // What bounds them on an H100 SXM: bytes. K2 on the integration field
 // (1,80,80,96,3), bf16 payload: f32 flow read 7.4 MB, payload 3.7 MB (the
 // gathers mostly hit L2), bf16 write 3.7 MB: ~15 MB, ~4.5 us at 3.35 TB/s,
-// so launch overhead is of the same size. K3 at (1,160,160,192,1) f32 with a
-// (1,80,80,96,3) field: 19.7 + 7.4 MB read, 19.7 MB written, ~14 us.
-// Design: one thread per output voxel, looping over channels; neighbouring
-// threads take neighbouring z, so coordinate reads and output writes are
-// coalesced and corner gathers of neighbours share cache lines.
+// so launch overhead is of the same size. Design of K2: one thread per output
+// voxel, looping over channels; neighbouring threads take neighbouring z, so
+// coordinate reads and output writes are coalesced and corner gathers of
+// neighbours share cache lines.
+//
+// K3 at (1,160,160,192,1) f32 with a (1,80,80,96,3) field: 19.7 + 7.4 MB
+// read, 19.7 MB written, ~14 us by bytes. What sets its pace is not bytes but
+// the load pipe and latency: with a thread per voxel each thread issued up to
+// 24 field loads at a 12-byte stride before its 8 gathers, and the eight
+// voxels of one half-res cell read the same 2x2x2x3 field values eight
+// times. Design: a thread takes one half-res cell, that is 2x2x2 output
+// voxels. It loads the cell's 24 field values once, straight into registers
+// (neighbouring threads take neighbouring cells along z, so a warp's loads
+// cover three cache lines each), builds the eight displacements from them
+// with the plain version's operations in its order (the parity of a voxel's
+// index is a compile-time constant here, so the odd/even branches vanish),
+// gathers the corners through the L1 with 32-bit offsets and stores the two
+// z-neighbours of a row as one 8-byte pair where the volume has one channel.
+// A shared-memory window of the field was measured slower than these direct
+// loads, which already are one load per value and cell.
 //
 // self_warp_add (a second entry of K2): one squaring step of the
 // scaling-and-squaring integration (ops/integrate.py::_integrate),
@@ -132,45 +147,115 @@ __global__ void __launch_bounds__(THREADS) warp_kernel(
                nearest, out + ((int64_t)b * N + n) * C);
 }
 
+// ---- K3 ----------------------------------------------------------------------
+
+// Offsets (32-bit, in elements of a C-channel volume) and weights of the 8
+// corners of sample_point's trilinear mix, in its (dx, dy, dz) order.
+struct Mix {
+  int lk[8];
+  float wk[8];
+};
+
+__device__ __forceinline__ Mix mix_of(float cx, float cy, float cz, int X, int Y, int Z, int C) {
+  const warp_tile::Corners k = warp_tile::corners_of(cx, cy, cz, X, Y, Z);
+  Mix m;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int dx = kk >> 2, dy = (kk >> 1) & 1, dz = kk & 1;
+    m.wk[kk] = __fmul_rn(__fmul_rn(k.wx[dx], k.wy[dy]), k.wz[dz]);
+    m.lk[kk] = ((k.xs[dx] * Y + k.ys[dy]) * Z + k.zs[dz]) * C;
+  }
+  return m;
+}
+
+template <typename T>
+__device__ __forceinline__ float mixed(const T* __restrict__ vol, const Mix& m, int c) {
+  float acc = __fmul_rn(to_f(vol[m.lk[0] + c]), m.wk[0]);
+#pragma unroll
+  for (int kk = 1; kk < 8; ++kk)
+    acc = __fadd_rn(acc, __fmul_rn(to_f(vol[m.lk[kk] + c]), m.wk[kk]));
+  return acc;
+}
+
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void put2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// half-res cells per block: a thread takes one cell, neighbours along z
+constexpr int CELL_X = 1, CELL_Y = 4, CELL_Z = 32;
+
 // K3: vol (B, X, Y, Z, C), flow_half (B, X/2, Y/2, Z/2, 3) f32.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) warp_up2x_kernel(
+__global__ void __launch_bounds__(CELL_X * CELL_Y * CELL_Z) warp_up2x_kernel(
     const T* __restrict__ vol, const float* __restrict__ fh,
-    T* __restrict__ out, int X, int Y, int Z, int C) {
-  const int N = X * Y * Z;
-  const int n = blockIdx.x * THREADS + threadIdx.x;
-  if (n >= N) return;
-  const int b = blockIdx.y;
-  const int z = n % Z, r = n / Z;
-  const int y = r % Y, x = r / Y;
+    T* __restrict__ out, int X, int Y, int Z, int C, int nty, int ntz) {
   const int Xh = X / 2, Yh = Y / 2, Zh = Z / 2;
-  const int xa = x >> 1, ya = y >> 1, za = z >> 1;
-  const int xb = min(xa + 1, Xh - 1), yb = min(ya + 1, Yh - 1), zb = min(za + 1, Zh - 1);
-  const bool ox = x & 1, oy = y & 1, oz = z & 1;
-  const float* f = fh + (int64_t)b * Xh * Yh * Zh * 3;
-  float d[3];
+  int t = blockIdx.x;
+  const int cz0 = (t % ntz) * CELL_Z;
+  t /= ntz;
+  const int cy0 = (t % nty) * CELL_Y, cx0 = (t / nty) * CELL_X;
+  const int xa = cx0 + threadIdx.x / (CELL_Y * CELL_Z);
+  const int ya = cy0 + (threadIdx.x / CELL_Z) % CELL_Y;
+  const int za = cz0 + threadIdx.x % CELL_Z;
+  if (xa >= Xh || ya >= Yh || za >= Zh) return;
+  // the cell's corner (xa, ya, za) and its upper neighbours, clamped to the edge
+  const int xs[2] = {xa, min(xa + 1, Xh - 1)}, ys[2] = {ya, min(ya + 1, Yh - 1)},
+            zs[2] = {za, min(za + 1, Zh - 1)};
+  const float* f = fh + (size_t)blockIdx.y * Xh * Yh * Zh * 3;
+  float F[2][2][2][3];
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    float vy[2];
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int xi = i ? xb : xa;
-      float vz[2];
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int yj = j ? yb : ya;
-        const int64_t row = ((int64_t)xi * Yh + yj) * Zh;
-        const float lo = f[(row + za) * 3 + ch];
-        vz[j] = oz ? __fmul_rn(0.5f, __fadd_rn(lo, f[(row + zb) * 3 + ch])) : lo;
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          F[i][j][k][ch] = f[((xs[i] * Yh + ys[j]) * Zh + zs[k]) * 3 + ch];
+  const int N = X * Y * Z;
+  const T* vb = vol + (size_t)blockIdx.y * N * C;
+  T* ob = out + (size_t)blockIdx.y * N * C;
+#pragma unroll
+  for (int ix = 0; ix < 2; ++ix)
+#pragma unroll
+    for (int iy = 0; iy < 2; ++iy) {
+      const int x = 2 * xa + ix, y = 2 * ya + iy;
+      Mix m[2];
+#pragma unroll
+      for (int iz = 0; iz < 2; ++iz) {
+        float d[3];
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          float vy[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float vz[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              vz[j] = iz ? __fmul_rn(0.5f, __fadd_rn(F[i][j][0][ch], F[i][j][1][ch]))
+                         : F[i][j][0][ch];
+            vy[i] = iy ? __fmul_rn(0.5f, __fadd_rn(vz[0], vz[1])) : vz[0];
+          }
+          const float u = ix ? __fmul_rn(0.5f, __fadd_rn(vy[0], vy[1])) : vy[0];
+          d[ch] = __fmul_rn(2.f, u);
+        }
+        m[iz] = mix_of(__fadd_rn((float)x, d[0]), __fadd_rn((float)y, d[1]),
+                       __fadd_rn((float)(2 * za + iz), d[2]), X, Y, Z, C);
       }
-      vy[i] = oy ? __fmul_rn(0.5f, __fadd_rn(vz[0], vz[1])) : vz[0];
+      // voxels (x, y, 2 za) and (x, y, 2 za + 1): 2 C contiguous values
+      T* o = ob + ((x * Y + y) * Z + 2 * za) * C;
+      if (C == 1) {
+        put2(o, mixed(vb, m[0], 0), mixed(vb, m[1], 0));
+      } else {
+        for (int c = 0; c < C; ++c) {
+          put(o + c, mixed(vb, m[0], c));
+          put(o + C + c, mixed(vb, m[1], c));
+        }
+      }
     }
-    const float u = ox ? __fmul_rn(0.5f, __fadd_rn(vy[0], vy[1])) : vy[0];
-    d[ch] = __fmul_rn(2.f, u);
-  }
-  sample_point(vol + (int64_t)b * N * C, X, Y, Z, C, __fadd_rn((float)x, d[0]),
-               __fadd_rn((float)y, d[1]), __fadd_rn((float)z, d[2]), 0,
-               out + ((int64_t)b * N + n) * C);
 }
 
 // ---- the fused squaring step ------------------------------------------------
@@ -260,15 +345,18 @@ extern "C" int warp_up2x_launch(const void* vol, const void* flow_half,
                                 void* out, int B, int X, int Y, int Z, int C,
                                 int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((X * Y * Z + THREADS - 1) / THREADS, B);
+  const int Xh = X / 2, Yh = Y / 2, Zh = Z / 2;
+  const int ntx = (Xh + CELL_X - 1) / CELL_X, nty = (Yh + CELL_Y - 1) / CELL_Y,
+            ntz = (Zh + CELL_Z - 1) / CELL_Z;
+  const dim3 grid(ntx * nty * ntz, B);
   const float* ff = static_cast<const float*>(flow_half);
   if (is_bf16)
-    warp_up2x_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
+    warp_up2x_kernel<__nv_bfloat16><<<grid, CELL_X * CELL_Y * CELL_Z, 0, s>>>(
         static_cast<const __nv_bfloat16*>(vol), ff,
-        static_cast<__nv_bfloat16*>(out), X, Y, Z, C);
+        static_cast<__nv_bfloat16*>(out), X, Y, Z, C, nty, ntz);
   else
-    warp_up2x_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(vol), ff, static_cast<float*>(out), X, Y, Z, C);
+    warp_up2x_kernel<float><<<grid, CELL_X * CELL_Y * CELL_Z, 0, s>>>(
+        static_cast<const float*>(vol), ff, static_cast<float*>(out), X, Y, Z, C, nty, ntz);
   return (int)cudaGetLastError();
 }
 

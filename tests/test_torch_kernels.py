@@ -7,10 +7,10 @@ JAX) runs it on its own:
 
 Tolerances: K2 and K3 repeat their plain versions' float32 operations in the
 same order without FMA contraction, so they match exactly (K3: 1e-5 for the
-upsample's sums). K1: float32 atol 1e-5 (a 54-term sum in another order than
-cuDNN's); bf16 output 1 bf16 ulp of the output magnitude (one float32 value
-rounded once, on either side of a rounding boundary after a last-bit
-difference).
+upsample's sums). K1: float32 (the float32 units) atol 1e-5 (a 54-term sum in
+another order than cuDNN's); bf16 (an implicit GEMM on the tensor cores) 1
+bf16 ulp of the output magnitude (one float32 value rounded once, on either
+side of a rounding boundary after a last-bit difference).
 
 K4 (pool adjoint) repeats its plain versions' compares and one division:
 exact. K5 and K7 sum the same products in another order than autograd
@@ -48,10 +48,13 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cout", [64, 12, 3])
-def test_k1_conv3_lrelu_pool_matches_plain(cuda_device, dtype, cout):
-    x = t(rand((2, 18, 12, 36, 2), 10), dtype).to(cuda_device)
-    w = t(rand((cout, 2, 3, 3, 3), 11, 0.2)).to(cuda_device)
+@pytest.mark.parametrize("cout", [64, 12, 3, 256])
+@pytest.mark.parametrize("cin", [2, 1, 3, 4])
+def test_k1_conv3_lrelu_pool_matches_plain(cuda_device, dtype, cout, cin):
+    """bf16 on the tensor cores, float32 on the float32 units; batch 2 and a
+    shape that no tile of either kernel divides."""
+    x = t(rand((2, 18, 12, 36, cin), 10), dtype).to(cuda_device)
+    w = t(rand((cout, cin, 3, 3, 3), 11, 0.2)).to(cuda_device)
     b = t(rand((cout,), 12)).to(cuda_device)
     before = kernels.CONV3_LRELU_POOL.launches
     got = tcp.conv3_lrelu_pool(x, w, b)
@@ -61,6 +64,56 @@ def test_k1_conv3_lrelu_pool_matches_plain(cuda_device, dtype, cout):
     assert got.dtype == dtype and got.shape == (2, 9, 6, 18, cout)
     tol = 1e-5 if dtype == torch.float32 else bf16_ulp(want.float().abs().max())
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_wide_input_takes_the_general_loop_over_k(cuda_device, dtype):
+    """Cin > 4: more k-steps than the tensor-core kernel unrolls."""
+    x = t(rand((1, 10, 12, 20, 6), 18), dtype).to(cuda_device)
+    w = t(rand((24, 6, 3, 3, 3), 19, 0.2)).to(cuda_device)
+    b = t(rand((24,), 20)).to(cuda_device)
+    got = tcp.conv3_lrelu_pool(x, w, b)
+    want = tcp.conv3_lrelu_pool(x, w, b, impl="plain")
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else bf16_ulp(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 2, 2), (6, 4, 10), (10, 18, 18), (8, 16, 34)])
+def test_k1_constant_one_input_shows_the_zero_padding(cuda_device, dtype, shape):
+    """With x == 1 an output is the sum of the weights at the taps inside the
+    volume: every face, edge and corner of the SAME padding shows, at volumes
+    smaller than a tile, equal to one and one voxel more."""
+    x = torch.ones((1, *shape, 2), dtype=dtype, device=cuda_device)
+    w = t(rand((16, 2, 3, 3, 3), 13, 0.5)).to(cuda_device)
+    b = t(rand((16,), 14)).to(cuda_device)
+    got = tcp.conv3_lrelu_pool(x, w, b)
+    want = tcp.conv3_lrelu_pool(x, w, b, impl="plain")
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else bf16_ulp(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+def test_k1_prepares_its_weights_once_per_version(cuda_device):
+    x = t(rand((1, 8, 8, 16, 2), 15), torch.bfloat16).to(cuda_device)
+    w = t(rand((8, 2, 3, 3, 3), 16, 0.2)).to(cuda_device)
+    b = t(rand((8,), 17)).to(cuda_device)
+    first = tcp.conv3_lrelu_pool(x, w, b)
+    assert tcp.prepared_weights(w, b, torch.bfloat16)[0] is tcp.prepared_weights(
+        w, b, torch.bfloat16)[0]
+    with torch.no_grad():
+        w.mul_(-1.5)  # an in-place update: the next call must see the new weights
+    second = tcp.conv3_lrelu_pool(x, w, b)
+    want = tcp.conv3_lrelu_pool(x, w, b, impl="plain")
+    torch.cuda.synchronize()
+    assert not torch.equal(first, second)
+    torch.testing.assert_close(second.float(), want.float(), rtol=0,
+                               atol=bf16_ulp(want.float().abs().max()))
+    view = x.reshape(-1)[2:2 + 8 * 8 * 8 * 2].reshape(1, 8, 8, 8, 2)  # 4 bytes off a 16-byte line
+    torch.testing.assert_close(tcp.conv3_lrelu_pool(view, w, b).float(),
+                               tcp.conv3_lrelu_pool(view, w, b, impl="plain").float(), rtol=0,
+                               atol=bf16_ulp(want.float().abs().max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -96,16 +149,30 @@ def test_k2_sample_absolute_coords_matches_plain(cuda_device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k3_warp_up2x_matches_plain(cuda_device, dtype):
-    vol = t(rand((2, 32, 24, 40, 1), 12), dtype).to(cuda_device)
-    fh = t(rand((2, 16, 12, 20, 3), 13, low=-3.0, high=3.0)).to(cuda_device)
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("case", ["smooth", "pm40", "far_edge", "indivisible"])
+def test_k3_warp_up2x_matches_plain(cuda_device, dtype, channels, case):
+    """Fields within +-3 voxels, far beyond the border (+-40: every corner
+    clamps somewhere), pushing every voxel onto the far edge, and a volume
+    that no block of cells divides."""
+    shape = (2, 14, 10, 22) if case == "indivisible" else (2, 32, 24, 40)
+    half = (shape[0], *(s // 2 for s in shape[1:]), 3)
+    vol = t(rand((*shape, channels), 12), dtype).to(cuda_device)
+    if case == "far_edge":
+        fh = torch.full(half, 25.0, device=cuda_device)
+    else:
+        amp = 40.0 if case == "pm40" else 3.0
+        fh = t(rand(half, 13, low=-amp, high=amp)).to(cuda_device)
     before = kernels.WARP_UP2X.launches
     got = tw.warp_up2x_batch(vol, fh)
     want = tw.warp_up2x_batch(vol, fh, impl="plain")
     torch.cuda.synchronize()
     assert kernels.WARP_UP2X.launches == before + 1
+    assert got.shape == vol.shape and got.dtype == dtype
     tol = 1e-5 if dtype == torch.float32 else bf16_ulp(want.float().abs().max())
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    if case == "far_edge":  # x + 50 clamps to the last voxel on every axis
+        assert torch.equal(got[0, 3, 3, 3], vol[0, -1, -1, -1])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
@@ -116,8 +183,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):  # volume on the card, field on the CPU
         tw.warp_batch(vol.float(), flow.cpu())
     w = torch.zeros((4, 1, 3, 3, 3), device=cuda_device)
-    with pytest.raises(TypeError):
-        tcp.conv3_lrelu_pool(vol, w, torch.zeros(4, device=cuda_device))
+    b = torch.zeros(4, device=cuda_device)
+    with pytest.raises(TypeError):  # float16 input
+        tcp.conv3_lrelu_pool(vol, w, b)
+    with pytest.raises(ValueError):  # the kernel pools before the LeakyReLU
+        tcp.conv3_lrelu_pool(vol.float(), w, b, neg_slope=-0.1)
+    with pytest.raises(ValueError):  # weights on the CPU
+        tcp.conv3_lrelu_pool(vol.float(), w.cpu(), b)
+    with pytest.raises(ValueError):  # more shared memory than a block may use
+        tcp.conv3_lrelu_pool(torch.zeros((1, 4, 4, 4, 64), device=cuda_device),
+                             torch.zeros((64, 64, 3, 3, 3), device=cuda_device),
+                             torch.zeros(64, device=cuda_device))
+    with pytest.raises(ValueError):
+        tcp.conv3_lrelu_pool(torch.zeros((1, 4, 4, 4, 64), dtype=torch.bfloat16,
+                                         device=cuda_device),
+                             torch.zeros((256, 64, 3, 3, 3), device=cuda_device),
+                             torch.zeros(256, device=cuda_device))
 
 
 def _tied(shape, seed, dtype, device):
