@@ -555,6 +555,13 @@ def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
         backward_call(lambda f: warp_onehot_batch(labels, f, L), [lflow], lcot),
         backward_call(lambda f: warp_onehot_batch(labels, f, L, impl="plain"), [lflow], lcot),
         plain_kw={"n": 2, "reps": 3})
+    # the row keeps both bounds: the sectors are what this layout of g (labels
+    # innermost, 104 bytes a voxel) makes the card move, the entries what the
+    # function needs and a label-major cotangent could come down to
+    timing["warp_labels_bwd"]["bound_needed"] = bound(
+        4 * needed + nfull * (1 + 12 + 12), nfull * 80, FP32_FLOPS)
+    print(f"#   K7 bound {timing['warp_labels_bwd']['bound'][0]:.4f} ms by the sectors moved, "
+          f"{timing['warp_labels_bwd']['bound_needed'][0]:.4f} ms by the entries needed")
 
 
 def training_phase(dev, shape, timer, rehearsal, tmp):
@@ -974,6 +981,9 @@ def main() -> None:
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
             "device_ops": row["device_ops"], "library_device_ms": row["library_device_ms"],
         })
+        if "bound_needed" in row:  # K7: bound_ms counts sectors moved, this one entries needed
+            report[-1].update({"bound_needed_ms": row["bound_needed"][0],
+                               "bound_needed_by": row["bound_needed"][1]})
         if "fused" in row:  # K2 and K5: the fused squaring step, timed on its own
             fused = row["fused"]
             report[-1].update({

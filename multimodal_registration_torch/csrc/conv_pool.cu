@@ -145,11 +145,11 @@ __device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
-// ST: the number of k-steps when it is known at compile time (4 for Cin <= 2,
-// 7 for Cin <= 4): all of them are then in flight at once, each with its own A
-// registers. 0 for any other: one k-step at a time. With Cin <= 2 a thread
-// needs few enough registers for three blocks on an SM, which a kernel that
-// waits for each of its m-tiles needs to keep the tensor cores busy.
+// ST: the number of k-steps when it is known at compile time, 4 for Cin <= 2:
+// all of them are then in flight at once, each with its own A registers, and a
+// thread needs few enough registers for three blocks on an SM, which a kernel
+// that waits for each of its m-tiles needs to keep the tensor cores busy. 0 for
+// a wider Cin: one k-step at a time.
 template <int ST>
 __global__ void __launch_bounds__(THREADS, ST == 4 ? 3 : 2) conv3_lrelu_pool_wgmma_kernel(
     const __nv_bfloat16* __restrict__ x, const uint4* __restrict__ wtiles,
@@ -157,7 +157,7 @@ __global__ void __launch_bounds__(THREADS, ST == 4 ? 3 : 2) conv3_lrelu_pool_wgm
     int X, int Y, int Z, int Cin, int Cout, float slope, int tiles_y, int tiles_z) {
   extern __shared__ uint4 smem[];
   const Dims d(Cin, Cout);
-  const int CP2 = ST == 4 ? 1 : ST == 7 ? 2 : d.CP2, S = ST ? ST : d.S, NC = d.NC;
+  const int CP2 = ST == 4 ? 1 : d.CP2, S = ST ? ST : d.S, NC = d.NC;
   uint4* ws = smem;                                           // [NC][S] B tiles
   float* bs = reinterpret_cast<float*>(ws + NC * S * (B_TILE / 16));  // [NC * 64], 0 beyond Cout
   int* koff = reinterpret_cast<int*>(bs + NC * 64);           // [KP / 2] halo offset of a k pair
@@ -231,7 +231,11 @@ __global__ void __launch_bounds__(THREADS, ST == 4 ? 3 : 2) conv3_lrelu_pool_wgm
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {  // m-tile: the window's voxels with (vx, vy) = (mt / 2, mt % 2)
         // zeroed although the first k-step overwrites them: ptxas was seen to
-        // drop the first m-tile's instructions when they start from nothing
+        // drop the first m-tile's instructions when they start from nothing.
+        // The first k-step still ignores them (scale-d 0), so that the sums are
+        // not live while the A words load: with every step accumulating, the
+        // Cin <= 2 kernel spilled 180 bytes instead of 20 under the register
+        // limit of three blocks an SM and was 1.4 times slower
         float acc[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[i] = 0.f;
@@ -328,7 +332,6 @@ int launch(const void* x, const void* wtiles, const float* bias, void* out, int 
            int Z, int Cin, int Cout, float slope, cudaStream_t s) {
   const int S = Dims(Cin, Cout).S;
   if (S == 4) return launch_st<4>(x, wtiles, bias, out, B, X, Y, Z, Cin, Cout, slope, s);
-  if (S == 7) return launch_st<7>(x, wtiles, bias, out, B, X, Y, Z, Cin, Cout, slope, s);
   return launch_st<0>(x, wtiles, bias, out, B, X, Y, Z, Cin, Cout, slope, s);
 }
 

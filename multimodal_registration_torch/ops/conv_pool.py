@@ -93,7 +93,7 @@ def window_row_order() -> torch.Tensor:
     return torch.stack([r % 8, v // 4, (v // 2) % 2, v % 2], -1)
 
 
-# (data_ptr, _version) of w and b, compute type, device -> (w, b, matrix, bias)
+# (data_ptr, _version) of w and b, compute type, device, stream -> (w, b, matrix, bias)
 _PREPARED: dict = {}
 
 
@@ -107,10 +107,13 @@ def prepared_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
     ``.data`` does not and must not be used on cached weights. An entry keeps
     its ``w`` and ``b`` alive, so their memory cannot be handed to other
     tensors that would then match the key; the cache holds at most 8 entries
-    and drops the oldest first. Tensors made under ``torch.inference_mode``
+    and drops the oldest first. The current stream of a card is part of the
+    key: the operands are made on it, and a launch on another stream would not
+    be ordered behind that. Tensors made under ``torch.inference_mode``
     track no version and are prepared anew on every call."""
     try:
-        key = (w.data_ptr(), w._version, b.data_ptr(), b._version, dtype, w.device, w.shape)
+        key = (w.data_ptr(), w._version, b.data_ptr(), b._version, dtype, w.device,
+               kernels.stream_of(w) if w.is_cuda else 0, w.shape)
     except RuntimeError:  # inference tensors do not track a version
         key = None
     entry = _PREPARED.get(key)
@@ -144,8 +147,9 @@ def conv3_lrelu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     full-res activation. ``x (B, X, Y, Z, Cin)`` float32 or bfloat16 with even
     spatial dims, ``w (Cout, Cin, 3, 3, 3)`` (PyTorch layout), ``b (Cout,)``.
     On the card the weights are prepared once per version of ``w`` and ``b``
-    (:func:`prepared_weights`), so a call is one device operation, and
-    ``neg_slope`` must not be negative (the kernels pool first)."""
+    (:func:`prepared_weights`), so a call is one device operation, and for a
+    bfloat16 input ``neg_slope`` must not be negative (the tensor-core kernel
+    pools first)."""
     if x.ndim != 5 or w.shape[1:] != (x.shape[-1], 3, 3, 3) or b.shape != (w.shape[0],):
         raise ValueError(
             f"conv3_lrelu_pool: shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
@@ -160,10 +164,12 @@ def conv3_lrelu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise NotImplementedError(
             "conv3_lrelu_pool (kernel K1) is inference-only, it has no backward: call "
             "it under torch.no_grad(), or use ConvBlock + max_pool_2x in training")
-    if neg_slope < 0:  # the kernel pools before the LeakyReLU, which must not reorder values
-        raise ValueError(f"conv3_lrelu_pool: neg_slope must not be negative, got {neg_slope}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv3_lrelu_pool: x must be float32 or bfloat16, got {x.dtype}")
+    # the tensor-core kernel pools before the LeakyReLU, which must not reorder values
+    if x.dtype == torch.bfloat16 and neg_slope < 0:
+        raise ValueError(
+            f"conv3_lrelu_pool: neg_slope must not be negative for bfloat16, got {neg_slope}")
     Cout = w.shape[0]
     smem = _smem_bytes(Cin, Cout, x.dtype)
     if smem > _SMEM_LIMIT:

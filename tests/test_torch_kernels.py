@@ -68,7 +68,7 @@ def test_k1_conv3_lrelu_pool_matches_plain(cuda_device, dtype, cout, cin):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_wide_input_takes_the_general_loop_over_k(cuda_device, dtype):
-    """Cin > 4: more k-steps than the tensor-core kernel unrolls."""
+    """Cin > 2: more k-steps than the tensor-core kernel unrolls."""
     x = t(rand((1, 10, 12, 20, 6), 18), dtype).to(cuda_device)
     w = t(rand((24, 6, 3, 3, 3), 19, 0.2)).to(cuda_device)
     b = t(rand((24,), 20)).to(cuda_device)
@@ -95,13 +95,27 @@ def test_k1_constant_one_input_shows_the_zero_padding(cuda_device, dtype, shape)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
+def test_k1_float32_takes_a_negative_slope(cuda_device):
+    """The float32 kernel applies the LeakyReLU before the max, so a slope
+    that reorders values is served; only the bfloat16 kernel refuses it."""
+    x = t(rand((1, 6, 8, 10, 2), 21)).to(cuda_device)
+    w = t(rand((8, 2, 3, 3, 3), 22, 0.2)).to(cuda_device)
+    b = t(rand((8,), 23)).to(cuda_device)
+    got = tcp.conv3_lrelu_pool(x, w, b, neg_slope=-0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tcp.conv3_lrelu_pool(x, w, b, neg_slope=-0.5, impl="plain"),
+                               atol=1e-5, rtol=0)
+
+
 def test_k1_prepares_its_weights_once_per_version(cuda_device):
     x = t(rand((1, 8, 8, 16, 2), 15), torch.bfloat16).to(cuda_device)
     w = t(rand((8, 2, 3, 3, 3), 16, 0.2)).to(cuda_device)
     b = t(rand((8,), 17)).to(cuda_device)
     first = tcp.conv3_lrelu_pool(x, w, b)
-    assert tcp.prepared_weights(w, b, torch.bfloat16)[0] is tcp.prepared_weights(
-        w, b, torch.bfloat16)[0]
+    cached = tcp.prepared_weights(w, b, torch.bfloat16)[0]
+    assert cached is tcp.prepared_weights(w, b, torch.bfloat16)[0]
+    with torch.cuda.stream(torch.cuda.Stream(cuda_device)):  # prepared anew for another stream
+        assert tcp.prepared_weights(w, b, torch.bfloat16)[0] is not cached
     with torch.no_grad():
         w.mul_(-1.5)  # an in-place update: the next call must see the new weights
     second = tcp.conv3_lrelu_pool(x, w, b)
@@ -186,8 +200,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     b = torch.zeros(4, device=cuda_device)
     with pytest.raises(TypeError):  # float16 input
         tcp.conv3_lrelu_pool(vol, w, b)
-    with pytest.raises(ValueError):  # the kernel pools before the LeakyReLU
-        tcp.conv3_lrelu_pool(vol.float(), w, b, neg_slope=-0.1)
+    with pytest.raises(ValueError):  # the tensor-core kernel pools before the LeakyReLU
+        tcp.conv3_lrelu_pool(vol.bfloat16(), w, b, neg_slope=-0.1)
     with pytest.raises(ValueError):  # weights on the CPU
         tcp.conv3_lrelu_pool(vol.float(), w.cpu(), b)
     with pytest.raises(ValueError):  # more shared memory than a block may use
