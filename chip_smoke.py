@@ -27,7 +27,22 @@ Phases (any failure exits non-zero):
      adjoint's tie rule ``equal`` and one with ``first``: launch counts per
      step, s/step, peak memory, a profile, and each training kernel's time
      beside its bound, its plain version and a PyTorch yardstick;
-  6. the card's name and power limit.
+  6. inference on real-scan layouts, at the flagship widths on the in-repo
+     checkpoints, each through the kernels (launches counted) and through
+     their plain versions (``impl="plain"``), the files written and finite:
+     6a. ``register()`` of an axis-aligned anisotropic pair (fixed 200x200x160
+         at 0.8x0.8x1.2 mm, moving 256x256x96 at 0.625x0.625x2 mm, the same
+         field of view): the separable device spline, held against scipy;
+     6b. the same moving scan rotated 6 degrees about z and shifted 2 mm: the
+         oblique linear preprocessing and the oblique cubic spline;
+     6c. ``use_subvol`` (tiles of 80x80x96, batches of 4) on the phase-4
+         pair, and the blend's time;
+     6d. ``bids_two_steps`` through its argv on 6b's pair (model 1
+         ``learned_model1``, model 2 ``learned_ref``, composition on the
+         image grid), and the composition's time;
+     6e. the three evaluators on 6b's and 6d's outputs, on the device
+         against the same on the CPU;
+  7. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -38,6 +53,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -46,6 +62,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(HERE, "benchmarks", "learned_ref_160x160x192_26lab.npz")
+CKPT_MODEL1 = os.path.join(HERE, "benchmarks", "learned_model1_160x160x192_26lab.npz")
 FLAGSHIP = dict(enc=[64] * 4, dec=[64] * 6, int_steps=5, int_res=2, svf_res=2,
                 compute_dtype="bfloat16")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -677,6 +694,365 @@ def training_phase(dev, shape, timer, rehearsal, tmp):
     return launches, {"step_s": step_ms / 1e3, "train_peak_mib": peak}
 
 
+SERVING = ("conv3_lrelu_pool", "warp_trilinear", "warp_up2x")
+
+
+def scan_affine(shape, voxel, rot_deg=0.0, shift=(0.0, 0.0, 0.0)):
+    """Affine of a scan of ``shape`` and ``voxel`` size (mm) whose field of
+    view is centred on the origin, rotated about z and shifted (mm)."""
+    import numpy as np
+
+    aff = np.diag([*voxel, 1.0])
+    aff[:3, 3] = [-(n - 1) * v / 2 for n, v in zip(shape, voxel)]
+    c, s = math.cos(math.radians(rot_deg)), math.sin(math.radians(rot_deg))
+    rot = np.array([[c, -s, 0.0, 0.0], [s, c, 0.0, 0.0], [0.0, 0.0, 1.0, 0.0], [0, 0, 0, 1.0]])
+    aff = rot @ aff
+    aff[:3, 3] += shift
+    return aff
+
+
+def tube_scan(shape, affine, seed, shift_mm=0.0):
+    """A bright tube along scanner z (1/e at 13.4 mm from its axis, moved
+    ``shift_mm`` in x) sampled on the grid ``(shape, affine)`` of an affine
+    whose third column is z alone, plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    axes = [np.arange(n, dtype=np.float32) for n in shape]
+    x = (affine[0, 0] * axes[0][:, None] + affine[0, 1] * axes[1][None, :] + affine[0, 3])[..., None]
+    y = (affine[1, 0] * axes[0][:, None] + affine[1, 1] * axes[1][None, :] + affine[1, 3])[..., None]
+    tube = np.exp(-((x - shift_mm) ** 2 + y ** 2) / 180.0) * np.ones(shape[2], np.float32)
+    return (tube + 0.05 * rng.random(shape, dtype=np.float32)).astype(np.float32)
+
+
+def finite_files(paths):
+    """Check that every path was written and holds finite values."""
+    import numpy as np
+
+    from multimodal_registration_torch.utils import nifti
+
+    for p in paths:
+        check(os.path.exists(p), f"{p} was not written")
+        check(bool(np.isfinite(nifti.load(p).get_fdata()).all()), f"{p} is not finite")
+
+
+def kernels_vs_plain(label, out_k, out_p):
+    """A registration through the kernels against the same through their
+    plain versions: the field (voxels), the moved image on the fixed grid and
+    on the moving grid (intensities in [0, 1]), PERF.md section 2's limits."""
+    import numpy as np
+
+    d_warp = float(np.abs(out_k["warp_data"] - out_p["warp_data"]).max())
+    d_moved = float(np.abs(np.asarray(out_k["moved"]) - np.asarray(out_p["moved"])).max())
+    d_orig = float(np.abs(out_k["moved_orig"] - out_p["moved_orig"]).max())
+    print(f"#   {label}: kernels vs plain: warp {d_warp:.3e} voxel (tol 0.1), moved {d_moved:.3e}, "
+          f"moved on the moving grid {d_orig:.3e} (tol 0.05); max|warp| "
+          f"{float(np.abs(out_p['warp_data']).max()):.3f}")
+    check(d_warp <= 0.1 and d_moved <= 0.05 and d_orig <= 0.05,
+          f"{label}: the kernel path disagrees with the plain path")
+    return {"d_warp": d_warp, "d_moved": d_moved, "d_moved_orig": d_orig}
+
+
+def launched(label, counts, names=SERVING, rehearsal=False):
+    print(f"#   {label}: launches {counts}")
+    if not rehearsal:
+        check(all(counts[k] >= 1 for k in names), f"{label}: a kernel was not launched: {counts}")
+
+
+def spline_phase(label, out, fixed_proc_path, moving_nii, timer, dev, rehearsal):
+    """The cubic device spline of the postprocess: the moved image resampled
+    onto the moving grid (what ``register()`` wrote) against scipy in float64
+    on the host, and the device time of the 4-channel resample."""
+    import numpy as np
+    import torch
+    from scipy.ndimage import affine_transform
+
+    from multimodal_registration_torch.ops.resample import _scaled_permutation, device_spline_resample
+    from multimodal_registration_torch.utils import nifti
+
+    M = np.linalg.inv(nifti.load(fixed_proc_path).affine) @ moving_nii.affine
+    kind = "oblique" if _scaled_permutation(M[:3, :3]) is None else "separable"
+    moved = np.asarray(out["moved"], np.float64)
+    t0 = time.perf_counter()
+    ref = affine_transform(moved, M[:3, :3], offset=M[:3, 3], output_shape=moving_nii.shape[:3],
+                           order=3, mode="constant", cval=0.0)
+    scipy_s = time.perf_counter() - t0
+    m = float(np.abs(moved).max())
+    err = float(np.abs(out["moved_orig"] - ref).max())
+    print(f"#   {label}: {kind} cubic spline of the moved image onto the moving grid "
+          f"{moving_nii.shape[:3]} vs scipy float64: {err:.3e} (tol {1e-4 * m:.3e} = 1e-4 x "
+          f"max|input|); scipy on the host {scipy_s:.3f} s for 1 channel")
+    check(err <= 1e-4 * m, f"{label}: the device spline disagrees with scipy")
+    vol4 = torch.as_tensor(np.repeat(moved.astype(np.float32)[..., None], 4, -1), device=dev)
+
+    def call():
+        with torch.inference_mode():
+            return device_spline_resample(vol4, M, moving_nii.shape[:3], "constant", 0.0, 3)
+
+    ms = timer(call, n=1, reps=3, warmup=1)
+    dev_ms, ops, _ = device_time(call, f"{kind} spline resample, 4 channels" if not rehearsal else None)
+    print(f"#   {label}: {kind} spline resample of 4 channels {tuple(vol4.shape)} -> "
+          f"{moving_nii.shape[:3]}: {ms:.3f} ms wall, device "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms in {ops} operations'}")
+    return {f"{kind}_spline_ms": ms, f"{kind}_spline_device_ms": dev_ms,
+            f"{kind}_spline_vs_scipy": err}
+
+
+def real_scan_phases(dev, timer, rehearsal, cfg, params, fx_np, mov_np, tmp):
+    """Phases 6a-6e: ``register()`` on scans off the fixed grid (axis-aligned
+    and oblique), ``use_subvol``, the two-step cascade through its CLI and the
+    three evaluators, each through the kernels and through their plain
+    versions. Returns the launch counts of each phase and its numbers."""
+    import numpy as np
+    import torch
+
+    from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.evalx import cli as ecli
+    from multimodal_registration_torch.infer.blend import blend_subvol_fields
+    from multimodal_registration_torch.infer.cascade import _compose_full, register_two_steps
+    from multimodal_registration_torch.infer.cli import bids_two_steps
+    from multimodal_registration_torch.infer.config import InferenceConfig
+    from multimodal_registration_torch.infer.preprocess import subvol_grid
+    from multimodal_registration_torch.infer.register import (
+        Registrar, apply_warp, load_params_any, register)
+    from multimodal_registration_torch.utils import nifti
+
+    t_phase = time.perf_counter()
+    reg_k = Registrar(cfg, params, device=dev)
+    reg_p = Registrar(cfg, params, device=dev, impl="plain")
+    counts, numbers = {}, {}
+    if rehearsal:
+        fixed = ((40, 40, 40), (0.8, 0.8, 1.2))
+        moving = ((52, 52, 24), (0.625, 0.625, 2.0))
+        subvol = [16, 16, 32]
+    else:
+        fixed = ((200, 200, 160), (0.8, 0.8, 1.2))   # 160 x 160 x 192 on the 1 mm grid
+        moving = ((256, 256, 96), (0.625, 0.625, 2.0))
+        subvol = [80, 80, 96]
+    fx_aff = scan_affine(*fixed)
+    nifti_fx = nifti.NiftiImage(tube_scan(fixed[0], fx_aff, 1), fx_aff)
+
+    def inputs(d, fx_img, mov_img):
+        """``fx.nii.gz`` and ``mov.nii.gz`` in ``d/kernels`` and ``d/plain``
+        (each side writes its ``_proc`` files beside its inputs)."""
+        paths = {}
+        for side in ("kernels", "plain"):
+            sd = os.path.join(d, side)
+            os.makedirs(sd)
+            paths[side] = (os.path.join(sd, "fx.nii.gz"), os.path.join(sd, "mov.nii.gz"))
+            for img, p, src in zip((fx_img, mov_img), paths[side], paths["kernels"]):
+                if side == "kernels":
+                    nifti.save(img, p)
+                else:
+                    shutil.copy(src, p)
+        return paths
+
+    def register_both(label, d, cfg_, mov_aff):
+        """register() of the pair through the kernels (launches counted) and
+        through the plain versions, each into its own directory."""
+        outs = {}
+        mov_nii = nifti.NiftiImage(tube_scan(moving[0], mov_aff, 2, shift_mm=2.0), mov_aff)
+        paths = inputs(d, nifti_fx, mov_nii)
+        for side, reg in (("kernels", reg_k), ("plain", reg_p)):
+            sd = os.path.join(d, side)
+            fxp, movp = paths[side]
+            if side == "kernels":
+                kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs[side] = register(cfg_, reg, fxp, movp, fx_contrast="T2w", naming="standalone",
+                                  res_dir=os.path.join(sd, "res"))
+            wall = time.perf_counter() - t0
+            if side == "kernels":
+                counts[label] = kernels.launch_counts()
+                print(f"#   {label}: register() {wall:.3f} s wall, timings (s) "
+                      f"{json.dumps(outs[side]['timings'])}")
+        finite_files(outs["kernels"]["paths"].values())
+        launched(label, counts[label], rehearsal=rehearsal)
+        numbers[label] = kernels_vs_plain(label, outs["kernels"], outs["plain"])
+        numbers[label]["timings"] = outs["kernels"]["timings"]
+        return outs["kernels"], mov_nii, os.path.join(d, "kernels")
+
+    # ---- 6a. axis-aligned anisotropic pair: the separable spline
+    print(f"# phase 6a: register() of an axis-aligned anisotropic pair, fixed {fixed}, "
+          f"moving {moving}", flush=True)
+    out, mov_nii, d = register_both("6a", os.path.join(tmp, "6a"), cfg, scan_affine(*moving))
+    numbers["6a"].update(spline_phase("6a", out, os.path.join(d, "fx_proc.nii.gz"), mov_nii,
+                                      timer, dev, rehearsal))
+
+    # ---- 6b. the moving scan rotated 6 degrees about z and shifted 2 mm
+    print("# phase 6b: register() of the moving scan rotated 6 deg about z, shifted 2 mm "
+          "(oblique linear preprocessing, oblique cubic postprocess)", flush=True)
+    mov_aff_b = scan_affine(*moving, rot_deg=6.0, shift=(2.0, 0.0, 0.0))
+    out_b, mov_nii_b, d_b = register_both("6b", os.path.join(tmp, "6b"), cfg, mov_aff_b)
+    numbers["6b"].update(spline_phase("6b", out_b, os.path.join(d_b, "fx_proc.nii.gz"),
+                                      mov_nii_b, timer, dev, rehearsal))
+
+    # ---- 6c. use_subvol on the phase-4 pair
+    cfg_sub = InferenceConfig.from_dict(dict(FLAGSHIP, use_subvol=True, subvol_size=subvol))
+    print(f"# phase 6c: register() with use_subvol, subvol_size {subvol}, on the phase-4 pair "
+          f"{fx_np.shape}", flush=True)
+    outs = {}
+    paths = inputs(os.path.join(tmp, "6c"), nifti.NiftiImage(fx_np, np.eye(4)),
+                   nifti.NiftiImage(mov_np, np.eye(4)))
+    for side, reg in (("kernels", reg_k), ("plain", reg_p)):
+        fxp, movp = paths[side]
+        if side == "kernels":
+            kernels.reset_launch_counts()
+        outs[side] = register(cfg_sub, reg, fxp, movp, fx_contrast="T2w", naming="bids")
+        if side == "kernels":
+            counts["6c"] = kernels.launch_counts()
+    tile, coords = subvol_grid(cfg_sub, fx_np.shape)
+    print(f"#   6c: {len(coords)} tiles of {tile} in chunks of {reg_k.max_batch}; timings (s) "
+          f"{json.dumps(outs['kernels']['timings'])}")
+    finite_files(outs["kernels"]["paths"].values())
+    launched("6c", counts["6c"], rehearsal=rehearsal)
+    chunks = -(-len(coords) // reg_k.max_batch)
+    if not rehearsal:
+        check(counts["6c"]["conv3_lrelu_pool"] == chunks and counts["6c"]["warp_up2x"] == chunks,
+              f"6c: K1 and K3 should run once per chunk of tiles ({chunks}): {counts['6c']}")
+    numbers["6c"] = kernels_vs_plain("6c", outs["kernels"], outs["plain"])
+    numbers["6c"]["timings"] = outs["kernels"]["timings"]
+    half_tile = tuple(s // 2 for s in tile)
+    tile_warps = torch.cat([smooth_field(half_tile, 3.0, 20 + t, dev) for t in range(len(coords))])
+    half_coords = [tuple(c // 2 for c in co) for co in coords]
+    half_vol = tuple(s // 2 for s in fx_np.shape)
+
+    def blend():
+        with torch.inference_mode():
+            return blend_subvol_fields(half_tile, half_vol, half_coords, tile_warps)
+
+    numbers["6c"]["blend_ms"] = timer(blend, n=1, reps=3, warmup=1)
+    numbers["6c"]["blend_device_ms"], ops, _ = device_time(blend)
+    print(f"#   6c: blend of {len(coords)} tile fields {half_tile} into {half_vol}: "
+          f"{numbers['6c']['blend_ms']:.3f} ms wall, device {numbers['6c']['blend_device_ms']} ms "
+          f"in {ops} operations")
+    del tile_warps
+
+    # ---- 6d. the two-step cascade through its CLI, on 6b's pair
+    print("# phase 6d: bids_two_steps through its argv (model 1 learned_model1, model 2 "
+          "learned_ref, cascade_compose_res full), on 6b's oblique pair", flush=True)
+    cfg_path = os.path.join(tmp, "cascade.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dict(FLAGSHIP, cascade_compose_res="full"), f)
+    cfg_c = InferenceConfig.from_json(cfg_path)
+    outs = {}
+    d_d = os.path.join(tmp, "6d")
+    paths = inputs(d_d, nifti_fx, mov_nii_b)
+    for side in ("kernels", "plain"):
+        fxp, movp = paths[side]
+        if side == "kernels":
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs[side] = bids_two_steps([
+                "--model1-path", CKPT_MODEL1, "--model2-path", CKPT, "--config-path", cfg_path,
+                "--fx-img-path", fxp, "--mov-img-path", movp, "--fx-img-contrast", "T2w",
+                "--one-cpu-tf", "False"] + (["--device", "cpu"] if rehearsal else []))
+            wall = time.perf_counter() - t0
+            counts["6d"] = kernels.launch_counts()
+        else:
+            reg1 = Registrar(cfg_c, load_params_any(CKPT_MODEL1, cfg_c), device=dev, impl="plain",
+                             svf_smooth_sigma=cfg_c.model1_svf_smooth_sigma)
+            reg2 = Registrar(cfg_c, load_params_any(CKPT, cfg_c), device=dev, impl="plain")
+            outs[side] = register_two_steps(cfg_c, reg1, reg2, fxp, movp, fx_contrast="T2w")
+            del reg1, reg2
+    print(f"#   6d: bids_two_steps {wall:.3f} s wall (two models loaded and built, the CLI's "
+          "whole run)")
+    finite_files(outs["kernels"]["paths"].values())
+    launched("6d", counts["6d"], rehearsal=rehearsal)
+    if not rehearsal:
+        check(counts["6d"]["conv3_lrelu_pool"] == 2 and counts["6d"]["warp_up2x"] == 2,
+              f"6d: two forwards, one per model, want K1 x2, K3 x2: {counts['6d']}")
+    numbers["6d"] = kernels_vs_plain("6d", outs["kernels"], outs["plain"])
+    numbers["6d"]["wall_s"] = wall
+    half = tuple(s // 2 for s in fx_np.shape)
+    w1, w2 = smooth_field(half, 3.0, 30, dev)[0], smooth_field(half, 2.0, 31, dev)[0]
+
+    def compose():
+        with torch.inference_mode():
+            return _compose_full(w1, w2, 2, fx_np.shape)
+
+    numbers["6d"]["compose_ms"] = timer(compose, n=1, reps=3, warmup=1)
+    numbers["6d"]["compose_device_ms"], ops, _ = device_time(compose)
+    print(f"#   6d: compose on the image grid (both fields upsampled {half} -> {fx_np.shape}, "
+          f"K2): {numbers['6d']['compose_ms']:.3f} ms wall, device "
+          f"{numbers['6d']['compose_device_ms']} ms in {ops} operations")
+    cascade_dir = os.path.join(d_d, "kernels")
+
+    # ---- 6e. the evaluators on 6b's and 6d's outputs
+    print("# phase 6e: eval_with_jacobian, eval_with_mi, eval_on_sc_seg on 6b's and 6d's "
+          "outputs, through their argv on the device, against the same on the CPU", flush=True)
+    from multimodal_registration_torch.evalx.jacobian import folding_summary
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    evals = {}
+    for label, d, out_ in (("6b", d_b, out_b), ("6d", cascade_dir, outs["kernels"])):
+        vols = {name: nifti.load(os.path.join(d, f"{name}.nii.gz"))
+                for name in ("fx_proc", "mov_proc")}
+        affine = vols["fx_proc"].affine
+        vols = {k: v.get_fdata() for k, v in vols.items()}
+        vols["moved"] = nifti.load(out_["paths"]["moved_proc"]).get_fdata()
+        # the segmentation: the tube's core in each processed volume, and the
+        # moving one warped by the registration's field (nearest, K2)
+        segs = {"fx_seg": (vols["fx_proc"] > 0.6).astype(np.float32),
+                "mov_seg": (vols["mov_proc"] > 0.6).astype(np.float32)}
+        segs["reg_seg"] = apply_warp(segs["mov_seg"], out_["warp_data"], "nearest",
+                                     rescale=out_["scale"], device=dev)
+        for name, a in segs.items():
+            nifti.save(nifti.NiftiImage(a, affine), os.path.join(d, f"{name}.nii.gz"))
+        field_path = out_["paths"]["warp_orig"]
+        flag = ["--device", "cpu"] if rehearsal else []
+        csv = {name: os.path.join(d, f"{name}.csv") for name in ("seg", "nmi", "jac", "cpu")}
+        code = ecli.eval_on_sc_seg([
+            "--fx-seg-path", os.path.join(d, "fx_seg.nii.gz"),
+            "--moving-seg-path", os.path.join(d, "mov_seg.nii.gz"),
+            "--warped-seg-path", os.path.join(d, "reg_seg.nii.gz"), "--sub-id", label,
+            "--out-file", csv["seg"]] + flag)
+        check(code == 0, f"6e: eval_on_sc_seg exited {code}")
+        ecli.eval_with_mi([
+            "--fx-im-path", os.path.join(d, "fx_proc.nii.gz"),
+            "--moving-im-path", os.path.join(d, "mov_proc.nii.gz"),
+            "--warped-im-path", out_["paths"]["moved_proc"], "--sub-id", label,
+            "--out-file", csv["nmi"]] + flag)
+        ecli.eval_with_jacobian([
+            "--def-field-path", field_path, "--sub-id", label, "--out-file", csv["jac"],
+            "--out-im-path", os.path.join(d, "detJa.nii.gz")] + flag)
+        rows = {}
+        for name in ("seg", "nmi", "jac"):
+            with open(csv[name]) as f:
+                lines = f.read().splitlines()
+            check(len(lines) == 2, f"6e: {name}.csv has {len(lines)} lines")
+            rows[name] = np.array([float(v) for v in lines[1].split(",")[2:]])
+            check(bool(np.isfinite(rows[name]).all()), f"6e: {label} {name} not finite")
+        # the same evaluations on the CPU, from the same arrays
+        _, before, after = ecli.eval_on_sc_seg_arrays(
+            segs["fx_seg"], segs["mov_seg"], segs["reg_seg"], label, csv["cpu"], device="cpu")
+        nmi = ecli.eval_with_mi_arrays(vols["fx_proc"], vols["mov_proc"], vols["moved"], label,
+                                       csv["cpu"], device="cpu")
+        fold = folding_summary(nifti.load(field_path).get_fdata(), device="cpu")
+        cpu = {"seg": [before["dice"], after["dice"], before["jaccard"], after["jaccard"]],
+               "nmi": [nmi["nmi_before"], nmi["nmi_after"], nmi["nmi_moving_moved"]],
+               "jac": [fold["percentage_negative_detJa"], fold["median_detJa"],
+                       fold["mean_detJa"], fold["std_detJa"]]}
+        for name, tol in (("seg", 0.0), ("nmi", 1e-6), ("jac", 1e-5)):
+            err = float(np.abs(rows[name][:len(cpu[name])] - np.array(cpu[name])).max())
+            check(err <= tol, f"6e: {label} {name} on the device vs the CPU: {err}")
+        evals[label] = {"dice_before": rows["seg"][0], "dice_after": rows["seg"][1],
+                        "nmi_before": rows["nmi"][0], "nmi_after": rows["nmi"][1],
+                        "pct_negative_detJ": rows["jac"][0]}
+        print(f"#   6e {label}: Dice before/after {rows['seg'][0]:.4f} / {rows['seg'][1]:.4f}; "
+              f"NMI before/after {rows['nmi'][0]:.5f} / {rows['nmi'][1]:.5f}; negative detJ "
+              f"{rows['jac'][0]:.5f}% of {int(rows['jac'][4])} voxels (device rows equal the "
+              "CPU's within 0 / 1e-6 / 1e-5)")
+    counts["6e"] = kernels.launch_counts()
+    launched("6e", counts["6e"], ("warp_trilinear",), rehearsal)
+    numbers["6e"] = {"wall_s": time.perf_counter() - t0, **evals}
+    print(f"#   6e: {numbers['6e']['wall_s']:.3f} s wall for both evaluations, on the device "
+          "and on the CPU")
+    numbers["total_s"] = time.perf_counter() - t_phase
+    return counts, numbers
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -707,7 +1083,8 @@ def main() -> None:
     check(os.path.dirname(os.path.abspath(kernels.__file__))
           == os.path.join(HERE, "multimodal_registration_torch"),
           f"imported the port from {kernels.__file__}, not from {HERE}")
-    check(os.path.exists(CKPT), f"checkpoint {CKPT} missing")
+    check(os.path.exists(CKPT) and os.path.exists(CKPT_MODEL1),
+          f"checkpoint {CKPT} or {CKPT_MODEL1} missing")
 
     dev = torch.device(args.device)
     shape = (32, 32, 48) if rehearsal else (160, 160, 192)
@@ -944,7 +1321,7 @@ def main() -> None:
         mse0 = float(np.mean((mov_np - fx_np) ** 2))
         mse1 = float(np.mean((out["moved"] - fx_np) ** 2))
         print(f"#   MSE to fixed: moving {mse0:.5f}, moved {mse1:.5f}")
-    serving = ("conv3_lrelu_pool", "warp_trilinear", "warp_up2x")
+    serving = SERVING
     if not rehearsal:
         check(all(launches[k] >= 1 for k in serving),
               f"a kernel of the serving path was not launched by register(): {launches}")
@@ -963,7 +1340,13 @@ def main() -> None:
               f"inference-only kernels in run_training, want K1 x2 (validation), K3 x0: "
               f"{train_launches}")
 
-    # ---- 6. report -----------------------------------------------------------
+    # ---- 6. register() on real-scan layouts, the cascade, evaluation --------
+    with tempfile.TemporaryDirectory() as td:
+        scan_launches, scan_numbers = real_scan_phases(dev, timer, rehearsal, cfg, params, fx_np,
+                                                       mov_np, td)
+    print(f"#   phase 6 numbers: {json.dumps(scan_numbers)}")
+
+    # ---- 7. report -----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
     # before it: register() for K1-K3, run_training() for K4-K7
     report = []
@@ -976,6 +1359,7 @@ def main() -> None:
             "launches": launches[k.name] if k.name in serving else train_launches[k.name],
             "launches_register": launches[k.name],
             "launches_run_training": train_launches[k.name],
+            **{f"launches_{phase}": n[k.name] for phase, n in scan_launches.items()},
             "max_abs_err": results[k.name]["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
@@ -996,7 +1380,7 @@ def main() -> None:
     print(f"# forward_ms {fwd_ms:.4f} pairs_per_s {1000 / fwd_ms:.4f} peak_mib {peak:.1f} "
           f"train_s_per_step {train_numbers['step_s']:.4f} "
           f"train_peak_mib {train_numbers['train_peak_mib']:.1f} "
-          f"total_s {time.time() - t_start:.1f}")
+          f"phase6_s {scan_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

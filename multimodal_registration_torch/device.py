@@ -21,6 +21,21 @@ def full_fp32_convs():
         cudnn.allow_tf32 = old
 
 
+@contextlib.contextmanager
+def full_fp32_matmuls():
+    """Run float32 matrix products in full float32 (the JAX package's
+    ``Precision.HIGHEST``): cuBLAS's TF32 mode
+    (``torch.backends.cuda.matmul.allow_tf32``) keeps ~3 decimal digits
+    and a caller may have switched it on. Restores the caller's setting."""
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = old
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on.
 

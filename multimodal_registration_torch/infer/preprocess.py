@@ -5,12 +5,12 @@ Counterpart of ``multimodal_registration_tpu/infer/preprocess.py``:
 
   1. min-max scale both volumes to [0, 1],
   2. resample the fixed volume to 1 mm isotropic and the moving volume onto
-     the fixed grid (on the device: kernel K2 for linear/nearest),
+     the fixed grid (on the device: kernel K2 for linear/nearest, the
+     quadratic device spline of ``ops/resample.py`` for spline),
   3. common shape = lexicographic ``max`` of the two shapes (reference
      quirk) rounded to a multiple of 16, then pad/crop to it,
-  4. with ``use_subvol``, cut overlapping tiles (:func:`subvol_grid`). The
-     registration of tiles and their blending wait for ROADMAP queue 1
-     item 9b, so ``register`` refuses ``use_subvol``.
+  4. with ``use_subvol``, cut overlapping tiles (:func:`subvol_grid`), which
+     ``register`` runs through the model and blends (:mod:`infer.blend`).
 """
 
 from __future__ import annotations
@@ -92,16 +92,16 @@ class PreprocessResult:
 
 
 def preprocess(cfg: InferenceConfig, fixed_nii: nifti.NiftiImage,
-               moving_nii: nifti.NiftiImage, device=None) -> PreprocessResult:
+               moving_nii: nifti.NiftiImage, device=None, impl=None) -> PreprocessResult:
     interp = _norm_interp(cfg.resample_interpolation)
     fx = minmax_scale(fixed_nii.get_fdata())
     mov = minmax_scale(moving_nii.get_fdata())
 
     fx_res = resample_nib(nifti.NiftiImage(fx, fixed_nii.affine), new_size=[1, 1, 1],
                           new_size_type="mm", interpolation=interp, mode="constant",
-                          device=device)
+                          device=device, impl=impl)
     mov_res = resample_nib(nifti.NiftiImage(mov, moving_nii.affine), image_dest=fx_res,
-                           interpolation=interp, mode="constant", device=device)
+                           interpolation=interp, mode="constant", device=device, impl=impl)
 
     # lexicographic max of shapes: the reference's `max(tuple, tuple)` quirk
     max_shape = max(tuple(fx_res.shape), tuple(mov_res.shape))

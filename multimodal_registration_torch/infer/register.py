@@ -5,8 +5,12 @@ Counterpart of ``multimodal_registration_tpu/infer/register.py``, with the
 same output-file names (``*_proc``, ``*_proc_reg_to_<CONTRAST>``,
 ``*_proc_field_to_<CONTRAST>`` with NIfTI intent 1007, and the moved image
 and field on the original moving grid), the same RAI export of the field and
-the same ``timings`` keys. Everything runs on ``cuda`` unless the
-``Registrar`` was built with ``device="cpu"``.
+the same ``timings`` keys. With ``use_subvol`` the tiles go through the
+model in chunks of ``max_batch`` and their fields are blended on the device
+(:mod:`infer.blend`). Everything runs on ``cuda`` unless the ``Registrar``
+was built with ``device="cpu"``; a ``Registrar`` built with
+``impl="plain"`` runs every kernel's plain version instead (the comparison
+of ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from multimodal_registration_torch.device import resolve_device
+from multimodal_registration_torch.infer.blend import blend_subvol_fields
 from multimodal_registration_torch.infer.config import InferenceConfig, check_supported
 from multimodal_registration_torch.infer.preprocess import preprocess
 from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
@@ -28,8 +33,9 @@ from multimodal_registration_torch.ops.warp import warp as device_warp
 from multimodal_registration_torch.utils import nifti
 
 
-def vxm_config_from(cfg: InferenceConfig) -> VxmConfig:
-    """The model config an :class:`InferenceConfig` maps to."""
+def vxm_config_from(cfg: InferenceConfig, svf_smooth_sigma: float | None = None) -> VxmConfig:
+    """The model config an :class:`InferenceConfig` maps to;
+    ``svf_smooth_sigma`` overrides the config's (the cascade's first step)."""
     return VxmConfig(
         enc=tuple(cfg.enc),
         dec=tuple(cfg.dec),
@@ -37,60 +43,76 @@ def vxm_config_from(cfg: InferenceConfig) -> VxmConfig:
         int_res=cfg.int_res,
         svf_res=cfg.svf_res,
         compute_dtype=cfg.compute_dtype,
-        svf_smooth_sigma=float(cfg.svf_smooth_sigma or 0.0),
+        svf_smooth_sigma=float(
+            (cfg.svf_smooth_sigma if svf_smooth_sigma is None else svf_smooth_sigma) or 0.0),
         quantize=str(cfg.quantize or ""),
     )
 
 
+def on_device(x, dev) -> torch.Tensor:
+    """``x`` (array or tensor) as float32 on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+
 class Registrar:
-    """Holds the model on its device. Batches larger than ``max_batch`` run
-    in chunks of ``max_batch`` pairs, the last one zero-padded, so every
-    call sees the same shapes and activation memory stays bounded."""
+    """Holds the model on its device. Batches larger than ``max_batch`` (the
+    tiles of a subject) run in chunks of ``max_batch`` pairs, the last one
+    zero-padded, so every call sees the same shapes and activation memory
+    stays bounded. ``svf_smooth_sigma`` overrides the config's (the
+    cascade's first model); ``impl`` goes to every kernel wrapper the
+    registration runs (``None``: the kernels on the card, ``"plain"``:
+    their plain versions)."""
 
     def __init__(self, cfg: InferenceConfig, params: dict, max_batch: int = 4,
-                 device=None):
+                 device=None, svf_smooth_sigma: float | None = None, impl=None):
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.vxm_cfg = vxm_config_from(cfg)
+        self.vxm_cfg = vxm_config_from(cfg, svf_smooth_sigma)
         self.model = VxmDense(self.vxm_cfg, device=self.device).eval()
         self.model.load_state_dict(params)
         self.max_batch = max_batch
+        self.impl = impl
 
     @torch.inference_mode()
-    def predict(self, mov: np.ndarray, fx: np.ndarray):
-        """Batched predict on ``(B, X, Y, Z)`` arrays -> ``(moved, warp)``:
-        ``(B, X, Y, Z)`` and the int-res field ``(B, x, y, z, 3)``."""
+    def predict_tensors(self, mov, fx):
+        """Batched predict on ``(B, X, Y, Z)`` arrays or tensors -> ``(moved,
+        warp)`` on the device: ``(B, X, Y, Z)`` and the int-res field ``(B,
+        x, y, z, 3)``."""
+        mov, fx = on_device(mov, self.device), on_device(fx, self.device)
         B = mov.shape[0]
         chunk = min(self.max_batch, B)
         moved_parts, warp_parts = [], []
         for s in range(0, B, chunk):
-            m = np.asarray(mov[s: s + chunk], np.float32)
-            f = np.asarray(fx[s: s + chunk], np.float32)
+            m, f = mov[s: s + chunk], fx[s: s + chunk]
             n = m.shape[0]
             if n < chunk:
-                pad = chunk - n
-                m = np.concatenate([m, np.zeros((pad, *m.shape[1:]), np.float32)])
-                f = np.concatenate([f, np.zeros((pad, *f.shape[1:]), np.float32)])
-            mt = torch.from_numpy(m).to(self.device)[..., None]
-            ft = torch.from_numpy(f).to(self.device)[..., None]
-            out = self.model(mt, ft)
-            moved_parts.append(out["moved"][..., 0].cpu().numpy()[:n])
-            warp_parts.append(out["warp"].cpu().numpy()[:n])
-        return np.concatenate(moved_parts), np.concatenate(warp_parts)
+                pad = torch.zeros((chunk - n, *m.shape[1:]), device=self.device)
+                m, f = torch.cat([m, pad]), torch.cat([f, pad])
+            out = self.model(m[..., None], f[..., None], impl=self.impl)
+            moved_parts.append(out["moved"][:n, ..., 0])
+            warp_parts.append(out["warp"][:n])
+        return torch.cat(moved_parts), torch.cat(warp_parts)
+
+    def predict(self, mov, fx):
+        """:meth:`predict_tensors` as numpy arrays on the host."""
+        moved, warp = self.predict_tensors(mov, fx)
+        return moved.cpu().numpy(), warp.cpu().numpy()
 
 
 @torch.inference_mode()
-def apply_warp(vol: np.ndarray, field: np.ndarray, interp: str, rescale: int = 1,
-               device=None) -> np.ndarray:
+def apply_warp(vol, field, interp: str, rescale: int = 1, device=None,
+               impl=None) -> np.ndarray:
     """``vxm.networks.Transform(rescale=...)`` parity: upsample the field by
-    ``rescale`` (scaling vectors), then warp."""
+    ``rescale`` (scaling vectors), then warp. ``vol`` and ``field`` are
+    arrays or tensors; the result is on the host."""
     dev = resolve_device(device)
-    v = torch.as_tensor(np.asarray(vol, np.float32), device=dev)
-    f = torch.as_tensor(np.asarray(field, np.float32), device=dev)
+    v, f = on_device(vol, dev), on_device(field, dev)
     if rescale != 1:
-        f = rescale_field(f, int(rescale), out_shape=tuple(vol.shape[:3]))
-    return device_warp(v, f, interp=interp).cpu().numpy()
+        f = rescale_field(f, int(rescale), out_shape=tuple(v.shape[:3]))
+    return device_warp(v, f, interp=interp, impl=impl).cpu().numpy()
 
 
 def _upsample2x_host(v: np.ndarray) -> np.ndarray:
@@ -185,20 +207,55 @@ def postprocess_and_save(warp_data: np.ndarray, scale: int, fixed_proc: nifti.Ni
     return moved_orig, warp_exp
 
 
+def warp_interp_of(cfg: InferenceConfig) -> str:
+    """The config's warp interpolation; anything but nearest is linear."""
+    return cfg.warp_interpolation if cfg.warp_interpolation in ("linear", "nearest") else "linear"
+
+
+def blend_tiles(warps, coords, mov_shape, model_in_shape, device=None):
+    """Blend per-tile fields ``(T, ...)`` into one ``(X, Y, Z, 3)`` field on
+    the device -> ``(field, scale)``. Half-resolution tiles (scale 2) blend
+    on the halved volume, tile and coordinates (integer ``// 2``)."""
+    model_in, mshape, cds = list(model_in_shape), list(mov_shape), list(coords)
+    if warps.shape[1] != model_in_shape[0]:
+        scale = 2
+        model_in = [s // 2 for s in model_in]
+        mshape = [s // 2 for s in mshape]
+        cds = [tuple(c // 2 for c in co) for co in cds]
+    else:
+        scale = 1
+    return blend_subvol_fields(tuple(model_in), tuple(mshape), cds, warps, device=device), scale
+
+
+def tiles_of(pre):
+    """The stacked ``(fixed, moving)`` tiles of a preprocessed pair."""
+    return np.stack(pre.subvols_fx), np.stack(pre.subvols_mov)
+
+
 def _infer_fields_single(cfg, registrar, pre):
     """Run the model; return (moved_proc, warp_data, scale)."""
-    warp_interp = cfg.warp_interpolation if cfg.warp_interpolation in ("linear", "nearest") else "linear"
+    warp_interp = warp_interp_of(cfg)
     mov_data = pre.moving.get_fdata()
     fx_data = pre.fixed.get_fdata()
-    moved_b, warp_b = registrar.predict(mov_data[None], fx_data[None])
-    warp_data = warp_b[0]
-    scale = 1 if warp_data.shape[0] == pre.model_in_shape[0] else 2
-    if warp_interp == "linear":
-        moved = moved_b[0]
-    else:
-        moved = apply_warp(mov_data, warp_data, "nearest", rescale=scale,
-                           device=registrar.device)
-    return moved, warp_data, scale
+    dev, impl = registrar.device, registrar.impl
+    if not cfg.use_subvol:
+        moved_b, warp_b = registrar.predict(mov_data[None], fx_data[None])
+        warp_data = warp_b[0]
+        scale = 1 if warp_data.shape[0] == pre.model_in_shape[0] else 2
+        if warp_interp == "linear":
+            moved = moved_b[0]
+        else:
+            moved = apply_warp(mov_data, warp_data, "nearest", rescale=scale, device=dev,
+                               impl=impl)
+        return moved, warp_data, scale
+
+    # subvolumes: the tiles in chunks of max_batch, blended on the device
+    fx_tiles, mov_tiles = tiles_of(pre)
+    _, warps = registrar.predict_tensors(mov_tiles, fx_tiles)
+    warp_data, scale = blend_tiles(warps, pre.subvol_coords, mov_data.shape,
+                                   pre.model_in_shape, device=dev)
+    moved = apply_warp(mov_data, warp_data, warp_interp, rescale=scale, device=dev, impl=impl)
+    return moved, warp_data.cpu().numpy(), scale
 
 
 def register(cfg: InferenceConfig, registrar: Registrar, fx_im_path: str, mov_im_path: str,
@@ -212,10 +269,6 @@ def register(cfg: InferenceConfig, registrar: Registrar, fx_im_path: str, mov_im
     mirrors ``3d_reg.py`` (moved image and field in original space go into
     ``res_dir``). Runs on the registrar's device.
     """
-    if cfg.use_subvol:
-        raise NotImplementedError(
-            "use_subvol (subvolume tiling and blending) is not ported yet "
-            "(ROADMAP queue 1 item 9b)")
     timings = {}
     t = [time.time()]
 
@@ -232,7 +285,7 @@ def register(cfg: InferenceConfig, registrar: Registrar, fx_im_path: str, mov_im
     mov_stem = mov_im_path.split(".")[0]
     _mark("load")
 
-    pre = preprocess(cfg, fixed_nii, moving_nii, device=registrar.device)
+    pre = preprocess(cfg, fixed_nii, moving_nii, device=registrar.device, impl=registrar.impl)
     _mark("preprocess")
     nifti.save(pre.fixed, f"{fx_stem}_proc.nii.gz")
     nifti.save(pre.moving, f"{mov_stem}_proc.nii.gz")
@@ -270,23 +323,32 @@ def register(cfg: InferenceConfig, registrar: Registrar, fx_im_path: str, mov_im
 
 def load_params_any(path: str, cfg: InferenceConfig) -> dict:
     """Model weights for the port from a flat ``.npz`` checkpoint of the JAX
-    package (state dict on the CPU; ``Registrar`` moves it)."""
+    package or a Keras VoxelMorph ``.h5`` (state dict on the CPU;
+    ``Registrar`` moves it)."""
+    vxm_cfg = vxm_config_from(cfg)
     if path.endswith((".h5", ".hdf5")):
-        raise NotImplementedError(
-            "Keras .h5 import is not ported yet (ROADMAP queue 1 item 9c, h5 import)")
+        from multimodal_registration_torch.models.h5_import import import_keras_vxm_h5
+
+        try:
+            return import_keras_vxm_h5(path, vxm_cfg)
+        except (KeyError, ValueError) as e:
+            raise _arch_hint(path, cfg, e) from e
     if not path.endswith(".npz"):
         raise NotImplementedError(
             f"{path!r}: only .npz checkpoints load in the port; Orbax checkpoint "
             "directories are not read (ROADMAP queue 1 item 9c): use the flat .npz "
             "written beside them")
-    vxm_cfg = vxm_config_from(cfg)
     with np.load(path) as z:
         flat = dict(z)
     try:
         return params_from_jax(flat, vxm_cfg)
     except (KeyError, ValueError) as e:
-        raise ValueError(
-            f"checkpoint {path!r} does not match the config's architecture "
-            f"(enc={list(cfg.enc)}, dec={list(cfg.dec)}) — point --config-path "
-            f"at the config this model was trained/exported with. Underlying "
-            f"error: {e}") from e
+        raise _arch_hint(path, cfg, e) from e
+
+
+def _arch_hint(path: str, cfg: InferenceConfig, e: Exception) -> ValueError:
+    return ValueError(
+        f"checkpoint {path!r} does not match the config's architecture "
+        f"(enc={list(cfg.enc)}, dec={list(cfg.dec)}) — point --config-path "
+        f"at the config this model was trained/exported with. Underlying "
+        f"error: {e}")

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from multimodal_registration_torch.device import full_fp32_matmuls
+
 
 @functools.lru_cache(maxsize=128)
 def _interp_matrix(n_out: int, n_in: int, zoom: float) -> np.ndarray:
@@ -72,11 +74,11 @@ def resize(vol: torch.Tensor, zoom, out_shape=None) -> torch.Tensor:
         torch.as_tensor(_interp_matrix(o, s, float(z)), device=v.device).to(v.dtype)
         for o, s, z in zip(out_shape, in_shape, zoom)
     ]
-    # float32 products run in full float32 on the card too: PyTorch's default
-    # matmul precision is "highest" (no TF32) unless a caller changes it
-    v = torch.einsum("ax,xyzd->ayzd", mats[0], v)
-    v = torch.einsum("by,xyzd->xbzd", mats[1], v)
-    v = torch.einsum("cz,xyzd->xycd", mats[2], v)
+    # full float32 on the card whatever the caller's TF32 setting
+    with full_fp32_matmuls():
+        v = torch.einsum("ax,xyzd->ayzd", mats[0], v)
+        v = torch.einsum("by,xyzd->xbzd", mats[1], v)
+        v = torch.einsum("cz,xyzd->xycd", mats[2], v)
     return v[..., 0] if squeeze else v
 
 

@@ -24,6 +24,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from multimodal_registration_torch.device import full_fp32_matmuls
 from multimodal_registration_torch.ops.resize import _interp_matrix, resize
 from multimodal_registration_torch.ops.warp import warp
 from multimodal_registration_torch.synth.perlin import (
@@ -70,7 +71,8 @@ def _warp_for_label(l, coarse_noises, label_weights, shape3):
     slice interpolated along the label axis, then resized spatially."""
     wf = None
     for noise, W in zip(coarse_noises, label_weights):
-        sl = torch.einsum("c,xyzcd->xyzd", W[l], noise)
+        with full_fp32_matmuls():
+            sl = torch.einsum("c,xyzcd->xyzd", W[l], noise)
         if tuple(sl.shape[:3]) != tuple(shape3):
             zoom = tuple(o / s for o, s in zip(shape3, sl.shape[:3]))
             sl = resize(sl, zoom, out_shape=shape3)

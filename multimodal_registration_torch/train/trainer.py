@@ -315,10 +315,14 @@ class Trainer:
     def load_checkpoint(self, path: str, with_opt: bool = False) -> int:
         """Load weights (and, with ``with_opt``, the optimizer state when a
         ``.opt.pt`` lies beside them) into the trainer; returns the epoch.
-        ``path`` is a checkpoint stem or its ``.npz``."""
+        ``path`` is a checkpoint stem or its ``.npz``, or a Keras VoxelMorph
+        ``.h5`` (weights only, epoch 0)."""
         if path.endswith((".h5", ".hdf5")):
-            raise NotImplementedError(
-                "Keras .h5 checkpoints are not ported yet (ROADMAP queue 1 item 9c, h5 import)")
+            from multimodal_registration_torch.models.h5_import import import_keras_vxm_h5
+
+            self.model.load_state_dict(import_keras_vxm_h5(path, self.vxm_cfg))
+            self._new_optimizer()
+            return 0
         stem = path[:-4] if path.endswith(".npz") else path
         if not os.path.exists(stem + ".npz"):
             if os.path.isdir(path):

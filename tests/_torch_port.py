@@ -2,6 +2,7 @@
 the JAX package). Inputs are made with numpy from a seed and handed to both."""
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -159,3 +160,116 @@ def label_maps(n, seed=9):
 
     return np.stack(generate_label_maps(torch.Generator().manual_seed(seed), n, (16, 16, 16), 4,
                                         im_scales=[4, 8], def_scales=[4], device="cpu"))
+
+
+# ---- scan pairs off the fixed grid, and the registration outputs compared ---
+
+def rotation_z(deg: float) -> np.ndarray:
+    c, s = math.cos(math.radians(deg)), math.sin(math.radians(deg))
+    return np.array([[c, -s, 0.0, 0.0], [s, c, 0.0, 0.0], [0.0, 0.0, 1.0, 0.0],
+                     [0.0, 0.0, 0.0, 1.0]])
+
+
+def scan_affine(shape, voxel, rot_deg=0.0, shift=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """Affine of a scan of ``shape`` and ``voxel`` size (mm) whose field of
+    view is centred on the origin, rotated about z and shifted (mm)."""
+    aff = np.diag([*voxel, 1.0])
+    aff[:3, 3] = [-(n - 1) * v / 2 for n, v in zip(shape, voxel)]
+    aff = rotation_z(rot_deg) @ aff
+    aff[:3, 3] += shift
+    return aff
+
+
+def tube_scan(shape, affine, seed, shift_mm=0.0):
+    """A bright tube along z (radius ~5 mm, centred in scanner space, moved
+    ``shift_mm`` in x) sampled on the grid ``(shape, affine)``, plus noise."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack(np.meshgrid(*[np.arange(s, dtype=np.float64) for s in shape],
+                               indexing="ij"), -1)
+    xyz = idx @ affine[:3, :3].T + affine[:3, 3]
+    tube = np.exp(-((xyz[..., 0] - shift_mm) ** 2 + xyz[..., 1] ** 2) / 30.0)
+    return (tube + 0.05 * rng.random(shape)).astype(np.float32)
+
+
+def write_scan_pair(d, nifti_mod, fixed, moving, seed=3):
+    """Write ``fx.nii.gz`` and ``mov.nii.gz`` into ``d``; ``fixed`` and
+    ``moving`` are ``(shape, affine)``. The moving tube is 2 mm off."""
+    os.makedirs(d, exist_ok=True)
+    (fs, fa), (ms, ma) = fixed, moving
+    nifti_mod.save(nifti_mod.NiftiImage(tube_scan(fs, fa, seed), fa), os.path.join(d, "fx.nii.gz"))
+    nifti_mod.save(nifti_mod.NiftiImage(tube_scan(ms, ma, seed + 1, 2.0), ma),
+                   os.path.join(d, "mov.nii.gz"))
+
+
+def output_files(d):
+    return sorted(os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d) for f in fs)
+
+
+def assert_same_outputs(jd, td, nearest=False, field_ulps=1.0):
+    """The same files in ``jd`` (JAX package) and ``td`` (port), with the
+    same affines and dtypes; fields within ``field_ulps`` bf16 ulp of the
+    largest field magnitude (fault F2); moved intensities (in [0, 1], which
+    change by less than 1 per voxel) within that or 1e-3; inputs and
+    preprocessed volumes within 1e-5 (the resampling's float32 products run
+    in another order). With ``nearest`` warping a sample whose field differs
+    slightly may fall on the other side of a half-voxel tie, so moved images
+    may differ in 0.1% of their voxels."""
+    from multimodal_registration_tpu.utils import nifti as jnifti
+    from multimodal_registration_torch.utils import nifti as tnifti
+
+    names = output_files(jd)
+    assert names == output_files(td)
+    pairs = {n: (jnifti.load(os.path.join(jd, n)), tnifti.load(os.path.join(td, n)))
+             for n in names}
+    is_field = {n: "field" in n or "warp" in n for n in names}
+    field_tol = field_ulps * bf16_ulp(max(np.abs(a.get_fdata()).max()
+                                          for n, (a, _) in pairs.items() if is_field[n]))
+    for name, (a, b) in pairs.items():
+        np.testing.assert_array_equal(b.affine, a.affine, err_msg=name)
+        assert b.dataobj.dtype == a.dataobj.dtype, name
+        assert b.header["intent_code"] == a.header["intent_code"], name
+        x, y = a.get_fdata(), b.get_fdata()
+        assert x.shape == y.shape, name
+        if is_field[name]:
+            tol = field_tol
+        elif "reg" in name:
+            tol = max(field_tol, 1e-3)
+        else:
+            tol = 1e-5
+        if nearest and "reg" in name:
+            assert (np.abs(x - y) > tol).mean() <= 1e-3, name
+        else:
+            np.testing.assert_allclose(y, x, atol=tol, rtol=0, err_msg=name)
+    return names
+
+
+def write_keras_h5(path, flat: dict, with_bias=True):
+    """A Keras VoxelMorph-layout ``.h5`` (``model_weights`` group, one
+    Conv3D layer per conv in module order, then the flow head) holding the
+    kernels and biases of ``flat`` (the JAX package's flat key format)."""
+    import h5py
+
+    rank = {"enc": 0, "dec": 1, "final": 2}
+
+    def order(name):  # params/unet/enc_3/conv, ..., params/flow last
+        if name == "params/flow":
+            return (3, 0)
+        kind, i = name.split("/")[2].split("_")
+        return (rank[kind], int(i))
+
+    names = sorted({k.rsplit("/", 1)[0] for k in flat if k.endswith("/kernel")}, key=order)
+    with h5py.File(path, "w") as f:
+        mw = f.create_group("model_weights")
+        layers = []
+        for li, name in enumerate(names):
+            lname = f"vxm_dense_conv_{li}"
+            layers.append(lname)
+            g = mw.create_group(lname)
+            g.create_dataset(f"{lname}/kernel:0", data=np.asarray(flat[name + "/kernel"]))
+            wn = [f"{lname}/kernel:0".encode()]
+            if with_bias:
+                g.create_dataset(f"{lname}/bias:0", data=np.asarray(flat[name + "/bias"]))
+                wn.append(f"{lname}/bias:0".encode())
+            g.attrs["weight_names"] = wn
+        mw.attrs["layer_names"] = [n.encode() for n in layers]
+    return names

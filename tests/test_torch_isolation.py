@@ -5,7 +5,7 @@
   * an entry point given no ``device`` runs on the GPU, and without one it
     raises instead of running on the CPU;
   * every setting the port does not run yet raises ``NotImplementedError``
-    naming its ROADMAP item;
+    naming its ROADMAP item, and those it has ported since run;
   * ``chip_smoke.py`` without a GPU, or without the rest of the repo, exits
     non-zero and prints no result line.
 """
@@ -31,7 +31,7 @@ from multimodal_registration_torch.models.weights import params_to_jax
 from multimodal_registration_torch.ops import resample as tres
 from multimodal_registration_torch.utils import nifti as tnifti
 
-from _torch_port import synthetic_pair
+from _torch_port import synthetic_pair, write_keras_h5
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "multimodal_registration_torch")
@@ -135,21 +135,29 @@ def test_settings_not_ported_yet_raise(tmp_path):
     assert tconf.InferenceConfig.from_dict(dict(TINY, sharding={"data": 1})).round16(40) == 32
 
     cfg = tconf.InferenceConfig.from_dict(dict(TINY))
-    with pytest.raises(NotImplementedError, match="item 9c, h5 import"):
-        treg.load_params_any(str(tmp_path / "w.h5"), cfg)
+    params = _tiny_params(cfg)
+    # item 9c's Keras .h5 import is ported: the weights come back
+    write_keras_h5(str(tmp_path / "w.h5"), params_to_jax(params))
+    loaded = treg.load_params_any(str(tmp_path / "w.h5"), cfg)
+    assert all(torch.equal(loaded[k], v) for k, v in params.items())
     with pytest.raises(NotImplementedError, match="Orbax"):
         treg.load_params_any(str(tmp_path / "ckpt_dir"), cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tres.affine_resample(np.zeros((8, 8, 8)), np.eye(4), np.diag([0.5, 1, 1, 1]),
-                             (16, 8, 8), "spline", device="cpu")
+    # item 10's spline on a non-identity grid map is ported: it runs
+    out = tres.affine_resample(np.ones((8, 8, 8)), np.eye(4), np.diag([0.5, 1, 1, 1]),
+                               (16, 8, 8), "spline", device="cpu")
+    assert out.shape == (16, 8, 8) and np.allclose(out[:15], 1.0)
 
-    sub = tconf.InferenceConfig.from_dict(dict(TINY, use_subvol=True))
-    reg = treg.Registrar(cfg, _tiny_params(cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        treg.register(sub, reg, "fx.nii.gz", "mov.nii.gz")
-    # the tile grid itself is ported and refuses tiles larger than the volume
+    # item 9b's subvolume tiling and blending is ported: register() runs
+    sub = tconf.InferenceConfig.from_dict(dict(TINY, use_subvol=True, subvol_size=[16, 16, 16]))
+    reg = treg.Registrar(cfg, params, device="cpu")
+    fx, mov = synthetic_pair((32, 32, 32))
+    for name, data in (("fx", fx), ("mov", mov)):
+        tnifti.save(tnifti.NiftiImage(data, np.eye(4)), str(tmp_path / f"{name}.nii.gz"))
+    res = treg.register(sub, reg, str(tmp_path / "fx.nii.gz"), str(tmp_path / "mov.nii.gz"))
+    assert res["warp"].shape == (32, 32, 32, 1, 3)
+    # the tile grid refuses tiles larger than the volume
     with pytest.raises(ValueError, match="subvol_size"):
-        tpre.subvol_grid(sub, (64, 64, 64))
+        tpre.subvol_grid(sub, (64, 64, 8))
 
 
 def _run_smoke(cwd):

@@ -498,3 +498,128 @@ def test_fused_step_refuses_what_the_kernel_does_not_take(cuda_device):
         tw.self_warp_add_batch(phi, torch.float16)
     with pytest.raises(TypeError):
         tw.self_warp_add_batch(phi.double())
+
+
+# ---- inference on real-scan layouts: two models, tile batches, the spline ----
+
+def _registrar(seed, impl=None, svf_smooth_sigma=None, max_batch=4):
+    from multimodal_registration_torch.infer.config import InferenceConfig
+    from multimodal_registration_torch.infer.register import Registrar, vxm_config_from
+    from multimodal_registration_torch.models.vxm_dense import VxmDense
+
+    cfg = InferenceConfig.from_dict(dict(enc=[16] * 4, dec=[16] * 6, compute_dtype="bfloat16"))
+    torch.manual_seed(seed)
+    params = VxmDense(vxm_config_from(cfg), device="cpu").state_dict()
+    # a flow head that gives a field of about a voxel
+    params["flow.weight"] = 0.5 * torch.randn(params["flow.weight"].shape,
+                                              generator=torch.Generator().manual_seed(seed))
+    return Registrar(cfg, params, max_batch=max_batch, device="cuda", impl=impl,
+                     svf_smooth_sigma=svf_smooth_sigma)
+
+
+def _pair(batch, shape=(32, 32, 48), seed=30):
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand((batch, *shape), generator=g), torch.rand((batch, *shape), generator=g)
+
+
+def test_two_registrars_serve_their_own_weights(cuda_device):
+    """Two models in one process (the cascade's): K1's prepared weights are
+    cached per parameter version and stream, so neither serves the other's.
+    Each registrar's kernel path holds against its own plain path and repeats
+    itself exactly after the other one ran; the first has the cascade's
+    smoothing override."""
+    mov, fx = _pair(1)
+    regs = {"model1": _registrar(1, svf_smooth_sigma=3.0), "model2": _registrar(2)}
+    plain = {"model1": _registrar(1, "plain", svf_smooth_sigma=3.0), "model2": _registrar(2, "plain")}
+    first = {k: r.predict_tensors(mov, fx) for k, r in regs.items()}
+    again = {k: r.predict_tensors(mov, fx) for k, r in reversed(list(regs.items()))}
+    for k in regs:
+        pm, pw = plain[k].predict_tensors(mov, fx)
+        (km, kw), (am, aw) = first[k], again[k]
+        assert torch.equal(kw, aw) and torch.equal(km, am), k
+        assert float((kw - pw).abs().max()) <= 0.1 and float((km - pm).abs().max()) <= 0.05, k
+    assert float((first["model1"][1] - first["model2"][1]).abs().max()) > 0.1
+    assert regs["model1"].vxm_cfg.svf_smooth_sigma == 3.0
+
+
+def test_tile_batches_through_the_kernels(cuda_device):
+    """Tiles in chunks of ``max_batch`` 4, the last chunk padded: K1, K2 and
+    K3 at batch 4 against their plain versions, one K1 and K3 launch per
+    chunk."""
+    mov, fx = _pair(6, (32, 32, 32), seed=31)
+    kernels.reset_launch_counts()
+    km, kw = _registrar(3).predict_tensors(mov, fx)
+    counts = kernels.launch_counts()
+    assert counts["conv3_lrelu_pool"] == 2 and counts["warp_up2x"] == 2, counts
+    assert counts["warp_trilinear"] == 10, counts
+    pm, pw = _registrar(3, "plain").predict_tensors(mov, fx)
+    assert km.shape == (6, 32, 32, 32) and kw.shape == (6, 16, 16, 16, 3)
+    assert float((kw - pw).abs().max()) <= 0.1 and float((km - pm).abs().max()) <= 0.05
+
+
+@pytest.mark.parametrize("kind", ["separable", "oblique"])
+@pytest.mark.parametrize("mode", ["constant", "nearest"])
+def test_device_spline_on_the_card(cuda_device, kind, mode):
+    """The device spline on the card against the same on the CPU (1e-5 of
+    max|vol|) and scipy in float64 (1e-4), with TF32 switched on by the
+    caller: the operator products must still run in full float32."""
+    import numpy as np
+    from scipy.ndimage import affine_transform
+
+    from multimodal_registration_torch.ops.resample import device_spline_resample
+
+    c, s = np.cos(0.1), np.sin(0.1)
+    M = (np.array([[0.0, 1.25, 0.0, -0.5], [0.8, 0.0, 0.0, 1.0], [0.0, 0.0, 1.1, 0.3],
+                   [0, 0, 0, 1.0]]) if kind == "separable" else
+         np.array([[c, -s, 0.0, 1.5], [s, c, 0.0, -2.0], [0.0, 0.0, 0.9, 0.4], [0, 0, 0, 1.0]]))
+    vol = rand((40, 36, 28, 4), 32)
+    out_shape = (44, 30, 30)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = device_spline_resample(t(vol).cuda(), M, out_shape, mode, 0.7, 3).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    cpu = device_spline_resample(t(vol), M, out_shape, mode, 0.7, 3).numpy()
+    ref = np.stack([affine_transform(vol[..., k].astype(np.float64), M[:3, :3], offset=M[:3, 3],
+                                     output_shape=out_shape, order=3, mode=mode, cval=0.7)
+                    for k in range(4)], -1)
+    m = float(np.abs(vol).max())
+    assert np.abs(got - cpu).max() <= 1e-5 * m
+    assert np.abs(got - ref).max() <= 1e-4 * m
+
+
+def test_blend_on_the_card(cuda_device):
+    from multimodal_registration_torch.infer.blend import blend_subvol_fields
+
+    coords = [(0, 16, 0, 16, 0, 16), (8, 24, 0, 16, 4, 20), (16, 32, 8, 24, 8, 24)]
+    warps = rand((3, 16, 16, 16, 3), 33)
+    got = blend_subvol_fields((16, 16, 16), (32, 24, 24), coords, t(warps).cuda())
+    want = blend_subvol_fields((16, 16, 16), (32, 24, 24), coords, t(warps))
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
+
+
+def test_float32_products_ignore_the_callers_tf32(cuda_device):
+    """Fault F3 for matrix products: with the caller's TF32 switched on, the
+    sample coordinates of a linear resample (K2) and the interpolation
+    products of ``resize`` still run in full float32 and agree with the CPU."""
+    import numpy as np
+
+    from multimodal_registration_torch.ops.resample import affine_resample
+    from multimodal_registration_torch.ops.resize import resize
+
+    c, s = np.cos(0.3), np.sin(0.3)
+    M = np.array([[1.2 * c, -s, 0.0, 3.0], [1.2 * s, c, 0.0, -2.0], [0.0, 0.0, 0.8, 1.5],
+                  [0.0, 0.0, 0.0, 1.0]])
+    vol = rand((140, 120, 90), 34, low=0.0, high=1.0)
+    small = t(rand((20, 18, 16, 3), 35))
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = affine_resample(vol, M, np.eye(4), (150, 130, 100), "linear", device="cuda")
+        gr = resize(small.cuda(), (3.5, 2.5, 1.5)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    want = affine_resample(vol, M, np.eye(4), (150, 130, 100), "linear", device="cpu")
+    assert np.abs(got - want).max() <= 1e-5
+    torch.testing.assert_close(gr, resize(small, (3.5, 2.5, 1.5)), atol=1e-6, rtol=0)

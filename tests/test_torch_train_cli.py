@@ -22,7 +22,7 @@ from multimodal_registration_torch.train.cli import run_training
 from multimodal_registration_torch.train.config import TrainConfig
 from multimodal_registration_torch.utils import nifti as tnifti
 
-from _torch_port import label_maps
+from _torch_port import label_maps, write_keras_h5
 from _torch_port import tiny_train_cfg as tiny
 
 
@@ -75,8 +75,11 @@ def test_checkpoint_roundtrip(tmp_path):
     # the optimizer's moments came back too
     st = trainer.optimizer.state_dict()["state"]
     assert len(st) == 22 and all(float(s["step"]) == out["steps"] for s in st.values())
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        trainer.load_checkpoint(str(tmp_path / "model.h5"))
+    # a Keras .h5 of the same weights loads too (weights only, epoch 0)
+    write_keras_h5(str(tmp_path / "model.h5"), params_to_jax(out["params"]))
+    assert trainer.load_checkpoint(str(tmp_path / "model.h5")) == 0
+    for k, v in trainer.model.state_dict().items():
+        torch.testing.assert_close(v, out["params"][k], atol=0, rtol=0)
     with pytest.raises(FileNotFoundError):
         trainer.load_checkpoint(str(tmp_path / "nothing"))
 
