@@ -6,10 +6,11 @@
 
 Phases (any failure exits non-zero):
   1. build the hand-written kernels (csrc/*.cu, one nvcc each, in parallel);
-  2. hold each of the seven kernels against its plain PyTorch version on the
+  2. hold each of the eight kernels against its plain PyTorch version on the
      card, at the shapes of the flagship forward and of a training step (K1
      also at a ragged shape with batch 2, at 256 output channels and in
-     float32; K2 and K5 also through their fused squaring step: forward exact,
+     float32; K8, the int8 conv, at a ragged shape here and at the published
+     widths' shapes in phase 7; K2 and K5 also through their fused squaring step: forward exact,
      backward, the 5-step integration and its device launches), and check that
      the inference-only kernels refuse to be differentiated;
   3. the flagship forward (VxmDense enc [64]x4 / dec [64]x6, int_steps 5,
@@ -42,7 +43,21 @@ Phases (any failure exits non-zero):
          image grid), and the composition's time;
      6e. the three evaluators on 6b's and 6d's outputs, on the device
          against the same on the CPU;
-  7. the report, and the card's name and power limit.
+  7. the published inference widths (``config/config_inference.json``: enc
+     [256]x4, dec [256]x6) on the in-repo checkpoint
+     ``learned_w256_160x160x192_26lab.npz``, on phase 4's pair:
+     7a. kernel K8 (the int8 conv) at every int8 conv shape of that forward
+         and a ragged one, int32 sums and outputs equal to its plain
+         version's, timed beside its bound, its plain version and cuDNN's bf16
+         conv (a yardstick the port never calls);
+     7b. the forward in bf16 (K1, K2 x5, K3; cuDNN for the other convs);
+     7c. the forward in int8 with the in-repo sidecar (K8 on 9 convs), and
+         what int8 costs against 7b;
+     7d. ``register()`` with the published config and ``quantize: "int8"``:
+         the lazy calibration writes a sidecar into a temp directory, the
+         ``quant-calibrate`` command another one; they agree, and nothing is
+         written under ``benchmarks/``;
+  8. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -210,12 +225,14 @@ def profile_calls(fn, what, n=3, top=10):
     busy_ms = sum(_dev_us(e) for e in events) / 1e3 / n
     if not events:
         print("#   profile: the profiler recorded no device time (not measured)")
-        return
+        return {}
+    idle = max(0.0, 1 - busy_ms / wall_ms)
     print(f"#   profile ({n} {what}s): device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
           f"per {what} in {sum(e.count for e in events) / n:.0f} device operations, "
-          f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+          f"idle share {idle:.3f}")
     for e in sorted(events, key=_dev_us, reverse=True)[:top]:
-        print(f"#     {_dev_us(e) / 1e3 / n:9.4f} ms  x{e.count // n:<3d} {e.key[:90]}")
+        print(f"#     {_dev_us(e) / 1e3 / n:9.4f} ms  x{round(e.count / n):<3d} {e.key[:90]}")
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle_share": idle}
 
 
 def bound(bytes_moved, ops, peak_ops):
@@ -359,7 +376,7 @@ def fused_step_phase(dev, half, results, rehearsal):
 
 TRAIN_WANT = {"conv3_lrelu_pool": 0, "warp_trilinear": 11, "warp_up2x": 0,
               "max_pool_2x_bwd": 4, "warp_trilinear_bwd": 6,
-              "warp_labels_soft_hard": 3, "warp_labels_bwd": 1}
+              "warp_labels_soft_hard": 3, "warp_labels_bwd": 1, "conv3_int8": 0}
 
 
 def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
@@ -797,6 +814,260 @@ def spline_phase(label, out, fixed_proc_path, moving_nii, timer, dev, rehearsal)
     return {f"{kind}_spline_ms": ms, f"{kind}_spline_device_ms": dev_ms,
             f"{kind}_spline_vs_scipy": err}
 
+W256_CKPT = os.path.join(HERE, "benchmarks", "learned_w256_160x160x192_26lab.npz")
+W256_SIDECAR = W256_CKPT + ".quant.json"
+INT8_TENSOR_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
+# the int8 convs of the w256 forward at 160x160x192, batch 1: (convs, Cin, Cout, grid)
+K8_SHAPES = (
+    ("enc_1, final_0, final_1", 256, 256, (80, 80, 96)),
+    ("dec_3", 512, 256, (80, 80, 96)),
+    ("enc_2", 256, 256, (40, 40, 48)),
+    ("dec_2", 512, 256, (40, 40, 48)),
+    ("enc_3", 256, 256, (20, 20, 24)),
+    ("dec_1", 512, 256, (20, 20, 24)),
+    ("dec_0", 256, 256, (10, 10, 12)),
+)
+K8_RAGGED = ("ragged, batch 2, odd Cout", 200, 75, (2, 21, 19, 13))
+
+
+def k8_inputs(dev, batch_grid, cin, cout, seed):
+    """bf16 activations (some beyond the scale 3.0, which clips them), float32
+    weights of the size of the checkpoint's and a bias."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(*batch_grid, cin)).astype(np.float32), device=dev)
+    w = torch.as_tensor(rng.normal(scale=0.02, size=(cout, cin, 3, 3, 3)).astype(np.float32),
+                        device=dev)
+    b = torch.as_tensor(rng.normal(scale=0.1, size=(cout,)).astype(np.float32), device=dev)
+    return x.bfloat16(), w, b, 3.0
+
+
+def k8_check(label, x, w, b, amax, plain_device=None):
+    """K8 against its plain version: the int32 sums and the outputs, equal.
+    With ``plain_device`` the plain version runs on copies of the inputs
+    there."""
+    import torch
+
+    from multimodal_registration_torch.ops.conv_int8 import conv3_int8
+
+    with torch.inference_mode():
+        px, pw, pb = (t.to(plain_device or t.device) for t in (x, w, b))
+        same_sums = torch.equal(
+            conv3_int8(x, w, b, amax, sums=True),
+            conv3_int8(px, pw, pb, amax, impl="plain", sums=True).to(x.device))
+        out_k = conv3_int8(x, w, b, amax)
+        out_p = conv3_int8(px, pw, pb, amax, impl="plain").to(x.device)
+    err = float((out_k.float() - out_p.float()).abs().max())
+    print(f"#   K8 conv3_int8 {label} {tuple(x.shape)} -> {w.shape[0]}: int32 sums "
+          f"{'equal' if same_sums else 'DIFFER'}, outputs max_abs_err {err:.3e} (exact) "
+          f"{'ok' if same_sums and err == 0.0 else 'FAILED'}", flush=True)
+    check(same_sums and torch.equal(out_k, out_p), f"K8 {label} disagrees with its plain version")
+    return err
+
+
+def k8_phase(dev, timer, rehearsal):
+    """7a: K8 at every int8 conv shape of the w256 forward and a ragged one,
+    against its plain version (exact), timed beside its bound, its plain
+    version and cuDNN's bf16 conv + LeakyReLU (the yardstick the port never
+    calls). Returns the row of each shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_registration_torch.ops.conv_int8 import conv3_int8
+
+    rows = []
+    for label, cin, cout, grid in K8_SHAPES + (K8_RAGGED,):
+        bg = grid if len(grid) == 4 else (1, *grid)
+        if rehearsal:
+            bg = (bg[0], *(max(2, g // 8) for g in bg[1:]))
+        x, w, b, amax = k8_inputs(dev, bg, cin, cout, cin + cout + bg[1])
+        k8_check(label, x, w, b, amax)
+        vox = math.prod(bg)
+        ops = 2 * vox * cout * 27 * cin
+        b_k8 = bound(vox * cin * 2 + w.numel() * 4 + b.numel() * 4 + vox * cout * 2, ops,
+                     INT8_TENSOR_OPS)
+        xc = x.permute(0, 4, 1, 2, 3)
+        wb, bb = w.bfloat16(), b.bfloat16()
+
+        def inference(fn):
+            def call():
+                with torch.inference_mode():
+                    return fn()
+            return call
+
+        row = measure(timer, f"conv3_int8 {label}", b_k8,
+                      inference(lambda: conv3_int8(x, w, b, amax)),
+                      inference(lambda: conv3_int8(x, w, b, amax, impl="plain")),
+                      inference(lambda: F.leaky_relu(F.conv3d(xc, wb, bb, padding=1), 0.2)),
+                      plain_kw={"n": 1, "reps": 1, "warmup": 1})
+        row.update(label=label, shape=list(bg), cin=cin, cout=cout, ops=ops)
+        dev_ms = "n/a" if row["device_ms"] is None else f"{row['device_ms']:.4f}"
+        print(f"#   K8 {label} {bg} {cin}->{cout}: {row['ms']:.4f} ms wrapper, {dev_ms} ms "
+              f"device in {row['device_ops']} operations, {ops / 1e12:.3f} Tops, bound "
+              f"{b_k8[0]:.4f} ms ({b_k8[1]}), plain {row['plain_ms']:.2f} ms, cuDNN bf16 "
+              f"{row['library_ms']:.4f} ms", flush=True)
+        rows.append(row)
+        del x, w, b, xc, wb, bb
+    return rows
+
+
+def w256_forward(label, model, mov_t, fx_t, want, timer, rehearsal):
+    """7b/7c: one forward of the w256 model through the kernels (launches
+    counted from zero) against the same through their plain versions, then
+    ms per forward, pairs/s, peak memory and a profile."""
+    import torch
+
+    from multimodal_registration_torch import kernels
+
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        out_k = model(mov_t, fx_t)
+        counts = kernels.launch_counts()
+        out_p = model(mov_t, fx_t, impl="plain")
+    print(f"#   {label}: launches per forward {counts}")
+    if not rehearsal:
+        expected = dict.fromkeys(counts, 0)
+        expected.update(want)
+        check(counts == expected, f"{label}: the forward launched {counts}, want {want}")
+    for k in ("moved", "warp"):
+        check(bool(torch.isfinite(out_k[k]).all()), f"{label}: {k} not finite")
+    shape = tuple(mov_t.shape[1:4])
+    check(tuple(out_k["warp"].shape) == (1, *(s // 2 for s in shape), 3),
+          f"{label}: warp has the wrong shape")
+    d_warp = float((out_k["warp"] - out_p["warp"]).abs().max())
+    d_moved = float((out_k["moved"] - out_p["moved"]).abs().max())
+    print(f"#   {label}: kernels vs plain: warp {d_warp:.3e} voxel (tol 0.1), moved "
+          f"{d_moved:.3e} (tol 0.05); max|warp| {float(out_p['warp'].abs().max()):.3f}")
+    check(d_warp <= 0.1 and d_moved <= 0.05, f"{label}: the kernel forward disagrees with the plain one")
+    del out_p
+
+    def one_forward():
+        with torch.inference_mode():
+            model(mov_t, fx_t)
+
+    if mov_t.is_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ms = timer(one_forward, n=1, reps=8, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**20 if mov_t.is_cuda else float("nan")
+    with torch.inference_mode():
+        plain_ms = timer(lambda: model(mov_t, fx_t, impl="plain"), n=1, reps=1, warmup=0)
+    print(f"#   {label}: {ms:.3f} ms per forward (median of 8, "
+          f"{'CUDA events' if mov_t.is_cuda else 'host clock, CPU'}), {1000 / ms:.3f} pairs/s, "
+          f"peak memory {peak:.1f} MiB; through the plain versions {plain_ms:.1f} ms", flush=True)
+    prof = {} if rehearsal else profile_calls(one_forward, "forward", n=6)
+    numbers = {"ms": ms, "pairs_per_s": 1000 / ms, "peak_mib": peak, "plain_ms": plain_ms,
+               "d_warp": d_warp, "d_moved": d_moved, **prof}
+    return out_k, numbers, counts
+
+
+def published_widths_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
+    """Phase 7: the published inference widths (``config/config_inference.json``,
+    enc [256]x4, dec [256]x6) on the in-repo checkpoint, on phase 4's pair.
+    7a K8 at every int8 conv shape of that forward; 7b the forward in bf16;
+    7c in int8 with the in-repo sidecar; 7d ``register()`` with the published
+    config and ``quantize: "int8"``, whose lazy calibration writes a sidecar
+    into ``tmp``, and the ``quant-calibrate`` command writing another one
+    there: the two agree. Nothing is written under ``benchmarks/``. Returns
+    K8's rows, the launch counts of 7b-7d and the phase's numbers."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.__main__ import main as port_main
+    from multimodal_registration_torch.infer.config import InferenceConfig
+    from multimodal_registration_torch.infer.register import Registrar, load_params_any, register
+    from multimodal_registration_torch.models.quantize import load_scales
+    from multimodal_registration_torch.utils import nifti
+
+    t_phase = time.perf_counter()
+    sidecars = {p: open(p, "rb").read()
+                for p in glob.glob(os.path.join(HERE, "benchmarks", "*.quant.json"))}
+    numbers, counts = {}, {}
+    print("# phase 7a: K8 at the int8 conv shapes of the w256 forward (160x160x192, batch 1)",
+          flush=True)
+    k8_rows = k8_phase(dev, timer, rehearsal)
+    numbers["7a_s"] = time.perf_counter() - t_phase
+
+    with open(os.path.join(HERE, "config", "config_inference.json")) as f:
+        settings = json.load(f)
+    cfg = InferenceConfig.from_dict(dict(settings))
+    check(cfg.enc == [256] * 4 and cfg.dec == [256] * 6 and cfg.compute_dtype == "bfloat16",
+          f"config_inference.json is not the published w256 bf16 architecture: {cfg}")
+    cfg8 = InferenceConfig.from_dict(dict(settings, quantize="int8"))
+    params = load_params_any(W256_CKPT, cfg)
+    mov_t = torch.as_tensor(mov_np, device=dev)[None, ..., None]
+    fx_t = torch.as_tensor(fx_np, device=dev)[None, ..., None]
+    serving = {"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1}
+
+    print("# phase 7b: the w256 forward in bf16 (K1, K2 x5, K3, cuDNN for the other convs)",
+          flush=True)
+    reg16 = Registrar(cfg, params, device=dev)
+    out16, numbers["7b"], counts["7b"] = w256_forward("7b bf16", reg16.model, mov_t, fx_t,
+                                                      serving, timer, rehearsal)
+    print("# phase 7c: the w256 forward in int8 with the in-repo sidecar (K8 on 9 convs)",
+          flush=True)
+    reg8 = Registrar(cfg8, params, device=dev, quant_scales=load_scales(W256_SIDECAR))
+    out8, numbers["7c"], counts["7c"] = w256_forward(
+        "7c int8", reg8.model, mov_t, fx_t, dict(serving, conv3_int8=9), timer, rehearsal)
+    # what int8 costs against bf16: a record (the quantities of
+    # benchmarks/quantize_quality_results.json), not a gate
+    d = (out8["flow_fullres"] - out16["flow_fullres"]).abs()
+    numbers["int8_vs_bf16"] = {
+        "flow_mean_vox": float(d.mean()), "flow_max_vox": float(d.max()),
+        "moved_max": float((out8["moved"] - out16["moved"]).abs().max())}
+    print(f"#   int8 against bf16 (a record, not a gate): full-res flow agreement mean "
+          f"{numbers['int8_vs_bf16']['flow_mean_vox']:.5f} voxel, max "
+          f"{numbers['int8_vs_bf16']['flow_max_vox']:.4f} voxel; moved max "
+          f"{numbers['int8_vs_bf16']['moved_max']:.4f}", flush=True)
+    del out16, out8, reg16, reg8, d
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    print("# phase 7d: register() with the published config and quantize int8 (lazy "
+          "calibration into a temp sidecar), then quant-calibrate through its argv", flush=True)
+    fxp, movp = os.path.join(tmp, "fx.nii.gz"), os.path.join(tmp, "mov.nii.gz")
+    nifti.save(nifti.NiftiImage(fx_np, np.eye(4)), fxp)
+    nifti.save(nifti.NiftiImage(mov_np, np.eye(4)), movp)
+    cfg_path = os.path.join(tmp, "config_inference_int8.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dict(settings, quantize="int8"), f)
+    lazy_path = os.path.join(tmp, "lazy.quant.json")
+    reg = Registrar(cfg8, params, device=dev, quant_sidecar=lazy_path)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = register(cfg8, reg, fxp, movp, fx_contrast="T2w", naming="standalone",
+                   res_dir=os.path.join(tmp, "res"))
+    wall = time.perf_counter() - t0
+    counts["7d"] = kernels.launch_counts()
+    print(f"#   7d: register() {wall:.3f} s wall, timings (s) {json.dumps(out['timings'])}")
+    launched("7d", counts["7d"], names=SERVING + ("conv3_int8",), rehearsal=rehearsal)
+    check(rehearsal or counts["7d"]["conv3_int8"] == 9,
+          f"7d: register() launched K8 {counts['7d']['conv3_int8']} times, want 9")
+    finite_files(out["paths"].values())
+    check(os.path.exists(lazy_path), "7d: the lazy calibration wrote no sidecar")
+    cli_path = os.path.join(tmp, "cli.quant.json")
+    rc = port_main(["quant-calibrate", "--model-path", W256_CKPT, "--config-path", cfg_path,
+                    "--pair", f"{fxp},{movp}", "--out", cli_path, "--one-cpu-tf", "False",
+                    "--device", dev.type])
+    check(rc == 0 and os.path.exists(cli_path), f"quant-calibrate failed ({rc})")
+    lazy, cli = load_scales(lazy_path), load_scales(cli_path)
+    check(set(lazy) == set(cli) and len(cli) == 9, f"the sidecars hold other keys: {lazy} {cli}")
+    rel = max(abs(float(lazy[k]) - float(cli[k])) / abs(float(cli[k])) for k in cli)
+    print(f"#   7d: the lazy and the quant-calibrate sidecars: 9 scales, largest relative "
+          f"difference {rel:.3e} (tol 1e-6); scales {json.dumps({k: float(v) for k, v in cli.items()})}")
+    check(rel <= 1e-6, "the two sidecars disagree")
+    after = {p: open(p, "rb").read()
+             for p in glob.glob(os.path.join(HERE, "benchmarks", "*.quant.json"))}
+    check(after == sidecars, "phase 7 wrote under benchmarks/")
+    numbers["7d"] = {"wall_s": wall, "timings": out["timings"], "sidecar_rel_diff": rel}
+    numbers["total_s"] = time.perf_counter() - t_phase
+    return k8_rows, counts, numbers
+
 
 def real_scan_phases(dev, timer, rehearsal, cfg, params, fx_np, mov_np, tmp):
     """Phases 6a-6e: ``register()`` on scans off the fixed grid (axis-aligned
@@ -1083,8 +1354,8 @@ def main() -> None:
     check(os.path.dirname(os.path.abspath(kernels.__file__))
           == os.path.join(HERE, "multimodal_registration_torch"),
           f"imported the port from {kernels.__file__}, not from {HERE}")
-    check(os.path.exists(CKPT) and os.path.exists(CKPT_MODEL1),
-          f"checkpoint {CKPT} or {CKPT_MODEL1} missing")
+    for path in (CKPT, CKPT_MODEL1, W256_CKPT, W256_SIDECAR):
+        check(os.path.exists(path), f"{path} missing")
 
     dev = torch.device(args.device)
     shape = (32, 32, 48) if rehearsal else (160, 160, 192)
@@ -1163,6 +1434,17 @@ def main() -> None:
     results["warp_up2x"]["max_abs_err"] = compare(
         "K3 warp_up2x f32", warp_up2x_batch(mov_img, fh),
         warp_up2x_batch(mov_img, fh, impl="plain"), 1e-5)
+
+    # K8 at a ragged shape. Its plain version runs on the CPU (its float64
+    # products on the card would leave cuBLAS's workspace allocated) and its
+    # inputs are inference tensors (K8 keeps no prepared weights for them),
+    # so that this check holds nothing on the card that the flagship
+    # forward's peak memory would count
+    label, cin, cout, bg = K8_RAGGED
+    with torch.inference_mode():
+        k8_args = k8_inputs(dev, bg, cin, cout, 7)
+    results["conv3_int8"]["max_abs_err"] = k8_check(label, *k8_args, plain_device="cpu")
+    del k8_args
 
     timing = {}
     training_kernels_phase(dev, shape, timer, results, timing, rehearsal)
@@ -1330,7 +1612,8 @@ def main() -> None:
     print("# phase 5: training (run_training, flagship widths)", flush=True)
     with tempfile.TemporaryDirectory() as td:
         train_launches, train_numbers = training_phase(dev, shape, timer, rehearsal, td)
-    training = tuple(k.name for k in kernels.KERNELS if k.name not in serving) + ("warp_trilinear",)
+    training = tuple(k.name for k in kernels.KERNELS
+                     if k.name not in serving + ("conv3_int8",)) + ("warp_trilinear",)
     if not rehearsal:
         check(all(train_launches[k] >= 1 for k in training),
               f"a kernel of the training path was not launched by run_training(): {train_launches}")
@@ -1346,20 +1629,37 @@ def main() -> None:
                                                        mov_np, td)
     print(f"#   phase 6 numbers: {json.dumps(scan_numbers)}")
 
-    # ---- 7. report -----------------------------------------------------------
+    # ---- 7. the published widths, bf16 and int8 --------------------------------
+    clear_scratch()
+    with tempfile.TemporaryDirectory() as td:
+        k8_rows, w256_launches, w256_numbers = published_widths_phase(dev, timer, rehearsal,
+                                                                      fx_np, mov_np, td)
+    print(f"#   phase 7 numbers: {json.dumps(w256_numbers)}")
+    # K8's row: its widest call, dec_3 (512 -> 256 at 80x80x96); every shape in "shapes"
+    timing["conv3_int8"] = dict(next(r for r in k8_rows if r["label"] == "dec_3"))
+    timing["conv3_int8"]["shapes"] = [
+        {k: r[k] for k in ("label", "shape", "cin", "cout", "ops", "ms", "device_ms",
+                           "device_ops", "plain_ms", "library_ms", "library_device_ms")}
+        | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]} for r in k8_rows]
+
+    # ---- 8. report -----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
-    # before it: register() for K1-K3, run_training() for K4-K7
+    # before it: register() for K1-K3, run_training() for K4-K7, register()
+    # with the published config in int8 (7d) for K8
     report = []
     for k in kernels.KERNELS:
         row = timing[k.name]
+        main_path = (w256_launches["7d"] if k.name == "conv3_int8" else
+                     launches if k.name in serving else train_launches)
         report.append({
             "name": k.name, "route": "cuda",
             "source": f"multimodal_registration_torch/csrc/{k.source}",
             "replaces": k.replaces,
-            "launches": launches[k.name] if k.name in serving else train_launches[k.name],
+            "launches": main_path[k.name],
             "launches_register": launches[k.name],
             "launches_run_training": train_launches[k.name],
             **{f"launches_{phase}": n[k.name] for phase, n in scan_launches.items()},
+            **{f"launches_{phase}": n[k.name] for phase, n in w256_launches.items()},
             "max_abs_err": results[k.name]["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
@@ -1368,6 +1668,8 @@ def main() -> None:
         if "bound_needed" in row:  # K7: bound_ms counts sectors moved, this one entries needed
             report[-1].update({"bound_needed_ms": row["bound_needed"][0],
                                "bound_needed_by": row["bound_needed"][1]})
+        if "shapes" in row:  # K8: every int8 conv shape of the w256 forward
+            report[-1]["shapes"] = row["shapes"]
         if "fused" in row:  # K2 and K5: the fused squaring step, timed on its own
             fused = row["fused"]
             report[-1].update({
@@ -1380,7 +1682,9 @@ def main() -> None:
     print(f"# forward_ms {fwd_ms:.4f} pairs_per_s {1000 / fwd_ms:.4f} peak_mib {peak:.1f} "
           f"train_s_per_step {train_numbers['step_s']:.4f} "
           f"train_peak_mib {train_numbers['train_peak_mib']:.1f} "
-          f"phase6_s {scan_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
+          f"phase6_s {scan_numbers['total_s']:.1f} "
+          f"w256_bf16_ms {w256_numbers['7b']['ms']:.4f} w256_int8_ms {w256_numbers['7c']['ms']:.4f} "
+          f"phase7_s {w256_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

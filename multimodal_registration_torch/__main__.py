@@ -8,6 +8,7 @@ without the sharding flags, plus ``--device``; ``--help`` lists them):
   bids-registration    BIDS single-model registration (bids_registration.py)
   bids-two-steps       BIDS two-step cascade (bids_two_steps_registration.py)
   gen-apply-def-field  draw a Perlin field and apply it (gen_apply_def_field.py)
+  quant-calibrate      write a checkpoint's int8 scale sidecar (mmreg-calibrate)
   eval-on-sc-seg       Dice etc. on segmentations (eval_reg_on_sc_seg.py)
   eval-with-mi         normalized mutual information (eval_reg_with_mi.py)
   eval-with-jacobian   Jacobian determinant / folding (eval_reg_with_jacobian.py)
@@ -26,6 +27,7 @@ COMMANDS = {
     "bids-registration": ("multimodal_registration_torch.infer.cli", "bids_registration"),
     "bids-two-steps": ("multimodal_registration_torch.infer.cli", "bids_two_steps"),
     "gen-apply-def-field": ("multimodal_registration_torch.infer.cli", "gen_apply_def_field"),
+    "quant-calibrate": ("multimodal_registration_torch.infer.cli", "quant_calibrate"),
     "eval-on-sc-seg": ("multimodal_registration_torch.evalx.cli", "eval_on_sc_seg"),
     "eval-with-mi": ("multimodal_registration_torch.evalx.cli", "eval_with_mi"),
     "eval-with-jacobian": ("multimodal_registration_torch.evalx.cli", "eval_with_jacobian"),

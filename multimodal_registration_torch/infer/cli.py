@@ -8,9 +8,14 @@ plus ``--device`` (default: the GPU; ``cpu`` runs on the CPU):
             --config-path cfg.json --fx-img-path fx.nii.gz --mov-img-path mov.nii.gz
 
   * :func:`bids_registration` (``bids_registration.py``),
-    :func:`bids_two_steps` (``bids_two_steps_registration.py``) and
-    :func:`gen_apply_def_field` (``gen_apply_def_field.py``), reached through
-    ``python -m multimodal_registration_torch <command>``.
+    :func:`bids_two_steps` (``bids_two_steps_registration.py``),
+    :func:`gen_apply_def_field` (``gen_apply_def_field.py``) and
+    :func:`quant_calibrate` (the JAX package's ``mmreg-calibrate``), reached
+    through ``python -m multimodal_registration_torch <command>``.
+
+With ``quantize: "int8"`` in the config, every registrar reads the int8
+scales from ``<model>.quant.json`` or calibrates them on its first pair and
+writes that file (``models/quantize.py::sidecar_kwargs``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ import torch
 from multimodal_registration_torch.device import resolve_device
 from multimodal_registration_torch.infer.cascade import register_two_steps
 from multimodal_registration_torch.infer.config import InferenceConfig
-from multimodal_registration_torch.infer.register import Registrar, load_params_any, register
+from multimodal_registration_torch.infer.register import (
+    Registrar, load_params_any, register, vxm_config_from)
+from multimodal_registration_torch.models.quantize import sidecar_kwargs
 from multimodal_registration_torch.utils import io as vio
 from multimodal_registration_torch.utils import nifti
 
@@ -69,7 +76,7 @@ def pair_registration(argv=None):
     if args.resample_interp:
         cfg.resample_interpolation = args.resample_interp
     params = load_params_any(args.model_path, cfg)
-    reg = Registrar(cfg, params, device=args.device)
+    reg = Registrar(cfg, params, device=args.device, **sidecar_kwargs(args.model_path, cfg))
     return register(
         cfg, reg, args.fx_img_path, args.mov_img_path,
         fx_contrast=args.fx_img_contrast, naming="standalone", res_dir=args.res_dir,
@@ -90,7 +97,8 @@ def bids_registration(argv=None):
     _maybe_one_cpu(args.one_cpu_tf)
 
     cfg = InferenceConfig.from_json(args.config_path)
-    reg = Registrar(cfg, load_params_any(args.model_path, cfg), device=args.device)
+    reg = Registrar(cfg, load_params_any(args.model_path, cfg), device=args.device,
+                    **sidecar_kwargs(args.model_path, cfg))
     return register(cfg, reg, args.fx_img_path, args.mov_img_path,
                     fx_contrast=args.fx_img_contrast, naming="bids")
 
@@ -109,10 +117,70 @@ def bids_two_steps(argv=None):
 
     cfg = InferenceConfig.from_json(args.config_path)
     reg1 = Registrar(cfg, load_params_any(args.model1_path, cfg), device=args.device,
-                     svf_smooth_sigma=cfg.model1_svf_smooth_sigma)
-    reg2 = Registrar(cfg, load_params_any(args.model2_path, cfg), device=args.device)
+                     svf_smooth_sigma=cfg.model1_svf_smooth_sigma,
+                     **sidecar_kwargs(args.model1_path, cfg))
+    reg2 = Registrar(cfg, load_params_any(args.model2_path, cfg), device=args.device,
+                     **sidecar_kwargs(args.model2_path, cfg))
     return register_two_steps(cfg, reg1, reg2, args.fx_img_path, args.mov_img_path,
                               fx_contrast=args.fx_img_contrast)
+
+
+def quant_calibrate(argv=None):
+    """Calibrate the int8 activation scales of a checkpoint and write its
+    ``<model>.quant.json`` sidecar (``models/quantize.py``). The pairs go
+    through the inference preprocessing, subvolume tiles included when the
+    config asks for them, so the scales are those of what the int8
+    registrar will see. Prints and returns the sidecar's path."""
+    from multimodal_registration_torch.infer.preprocess import preprocess
+    from multimodal_registration_torch.models import quantize as qmod
+
+    p = argparse.ArgumentParser(
+        description="Write the int8 activation-scale sidecar for a checkpoint.")
+    p.add_argument("--model-path", required=True)
+    p.add_argument("--config-path", required=True)
+    p.add_argument("--pair", action="append", required=True,
+                   metavar="FIXED.nii.gz,MOVING.nii.gz",
+                   help="calibration pair (repeatable; 1-3 representative pairs are plenty: "
+                        "the scales are per-tensor running maxima)")
+    p.add_argument("--out", default=None,
+                   help="sidecar path (default: <model-path>.quant.json)")
+    p.add_argument("--margin", type=float, default=1.25,
+                   help="headroom factor on the recorded maxima")
+    _add_common_flags(p)
+    args = p.parse_args(argv)
+    _maybe_one_cpu(args.one_cpu_tf)
+
+    cfg = InferenceConfig.from_json(args.config_path)
+    if not (cfg.quantize or ""):
+        cfg.quantize = "int8"  # calibration implies the int8 layout
+    params = load_params_any(args.model_path, cfg)
+    dev = resolve_device(args.device)
+
+    pairs = []
+    for spec in args.pair:
+        parts = spec.split(",")
+        if len(parts) != 2:
+            raise SystemExit(
+                f"--pair wants FIXED,MOVING (two comma-separated paths), got: {spec!r}")
+        pre = preprocess(cfg, nifti.load(parts[0]), nifti.load(parts[1]), device=dev)
+        if cfg.use_subvol:
+            pairs.extend((np.asarray(m, np.float32)[None, ..., None],
+                          np.asarray(f, np.float32)[None, ..., None])
+                         for m, f in zip(pre.subvols_mov, pre.subvols_fx))
+        else:
+            pairs.append((pre.moving.get_fdata()[None, ..., None],
+                          pre.fixed.get_fdata()[None, ..., None]))
+
+    quant = qmod.calibrate_scales(vxm_config_from(cfg), params, pairs, margin=args.margin,
+                                  device=dev)
+    if not quant:
+        raise SystemExit(
+            "no quantizable conv at these widths (every conv input is thinner than the int8 "
+            "threshold) — nothing to calibrate; int8 only pays at the published enc-256 widths")
+    out = args.out or qmod.sidecar_path(args.model_path)
+    qmod.save_scales(out, quant)
+    print(out)
+    return out
 
 
 @torch.inference_mode()

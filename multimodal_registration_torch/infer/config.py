@@ -2,9 +2,9 @@
 ``config/config_inference.json``.
 
 Counterpart of ``multimodal_registration_tpu/infer/config.py``: the same
-keys, defaults and validation. ``sharding`` and ``quantize`` are parsed and
-validated as there; a non-empty value raises ``NotImplementedError`` naming
-the ROADMAP item the port waits for.
+keys, defaults and validation. ``sharding`` is parsed and validated as
+there; a layout of more than one device raises ``NotImplementedError``
+naming the ROADMAP item the port waits for.
 """
 
 from __future__ import annotations
@@ -85,7 +85,3 @@ def check_supported(cfg: InferenceConfig) -> None:
         raise NotImplementedError(
             f"sharding {cfg.sharding} is not ported yet (ROADMAP queue 1 item 15, "
             "multi-GPU)")
-    if cfg.quantize:
-        raise NotImplementedError(
-            f"quantize={cfg.quantize!r} is not ported yet (ROADMAP queue 1 item 12, "
-            "published widths and int8)")

@@ -10,13 +10,16 @@ model in chunks of ``max_batch`` and their fields are blended on the device
 (:mod:`infer.blend`). Everything runs on ``cuda`` unless the ``Registrar``
 was built with ``device="cpu"``; a ``Registrar`` built with
 ``impl="plain"`` runs every kernel's plain version instead (the comparison
-of ``chip_smoke.py``).
+of ``chip_smoke.py``). With ``quantize: "int8"`` the registrar takes its
+activation scales from ``quant_scales`` or calibrates them on the first
+chunk it predicts, and writes them to ``quant_sidecar`` if given.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -25,6 +28,7 @@ from multimodal_registration_torch.device import resolve_device
 from multimodal_registration_torch.infer.blend import blend_subvol_fields
 from multimodal_registration_torch.infer.config import InferenceConfig, check_supported
 from multimodal_registration_torch.infer.preprocess import preprocess
+from multimodal_registration_torch.models import quantize as qmod
 from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
 from multimodal_registration_torch.models.weights import params_from_jax
 from multimodal_registration_torch.ops.resample import affine_resample
@@ -49,6 +53,21 @@ def vxm_config_from(cfg: InferenceConfig, svf_smooth_sigma: float | None = None)
     )
 
 
+def persist_quant_sidecar(path: str, quant) -> bool:
+    """Best-effort write of lazily calibrated int8 scales to the checkpoint's
+    ``<model>.quant.json``, so the calibration forward is paid once per
+    checkpoint, not once per process. Never raises: a read-only checkpoint
+    directory only costs a calibration in the next process."""
+    if not path or not quant:
+        return False
+    try:
+        qmod.save_scales(path, quant)
+        return True
+    except OSError as e:
+        warnings.warn(f"could not persist int8 scales to {path}: {e}")
+        return False
+
+
 def on_device(x, dev) -> torch.Tensor:
     """``x`` (array or tensor) as float32 on ``dev``."""
     if isinstance(x, torch.Tensor):
@@ -63,10 +82,14 @@ class Registrar:
     stays bounded. ``svf_smooth_sigma`` overrides the config's (the
     cascade's first model); ``impl`` goes to every kernel wrapper the
     registration runs (``None``: the kernels on the card, ``"plain"``:
-    their plain versions)."""
+    their plain versions). int8 scales: ``quant_scales`` (flat, as
+    ``models/quantize.py::load_scales`` gives them) or, when None, calibrated
+    on the first chunk predicted (one full-precision forward; every output
+    comes from the int8 path) and written to ``quant_sidecar``."""
 
     def __init__(self, cfg: InferenceConfig, params: dict, max_batch: int = 4,
-                 device=None, svf_smooth_sigma: float | None = None, impl=None):
+                 device=None, svf_smooth_sigma: float | None = None, impl=None,
+                 quant_scales=None, quant_sidecar: str | None = None):
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -75,6 +98,18 @@ class Registrar:
         self.model.load_state_dict(params)
         self.max_batch = max_batch
         self.impl = impl
+        self.quant_scales = quant_scales
+        self.quant_sidecar = quant_sidecar
+        if self.vxm_cfg.quantize and quant_scales is not None:
+            self.model.set_quant_scales(quant_scales)
+
+    def _ensure_scales(self, m, f):
+        if not self.vxm_cfg.quantize or self.quant_scales is not None:
+            return
+        self.quant_scales = qmod.calibrate_scales(self.vxm_cfg, self.model,
+                                                  [(m[..., None], f[..., None])], impl=self.impl)
+        self.model.set_quant_scales(self.quant_scales)
+        persist_quant_sidecar(self.quant_sidecar, self.quant_scales)
 
     @torch.inference_mode()
     def predict_tensors(self, mov, fx):
@@ -91,6 +126,7 @@ class Registrar:
             if n < chunk:
                 pad = torch.zeros((chunk - n, *m.shape[1:]), device=self.device)
                 m, f = torch.cat([m, pad]), torch.cat([f, pad])
+            self._ensure_scales(m, f)
             out = self.model(m[..., None], f[..., None], impl=self.impl)
             moved_parts.append(out["moved"][:n, ..., 0])
             warp_parts.append(out["warp"][:n])

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIB_LOCK = threading.Lock()
 BUILD_LOG: dict[str, dict] = {}  # source -> {"seconds", "log", "path"}
@@ -198,8 +198,18 @@ WARP_LABELS_BWD = Kernel(
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "multimodal_registration_tpu/ops/warp.py:601",
 )
+CONV3_INT8 = Kernel(
+    "conv3_int8", "conv_int8.cu", "conv3_int8_launch",
+    # xq, wq, scale, bias, out, B, X, Y, Z, Cp, Cout, mode, slope, stream
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "multimodal_registration_tpu/models/unet.py:173",
+    entries={
+        # the quantize pass that precedes each conv: x, xq, M, Cin, Cp, inv, is_bf16, stream
+        "quantize_act_launch": [_P, _P, _L, _I, _I, _F, _I, _P],
+    },
+)
 KERNELS = (CONV3_LRELU_POOL, WARP_TRILINEAR, WARP_UP2X, MAX_POOL_2X_BWD,
-           WARP_TRILINEAR_BWD, WARP_LABELS, WARP_LABELS_BWD)
+           WARP_TRILINEAR_BWD, WARP_LABELS, WARP_LABELS_BWD, CONV3_INT8)
 
 
 def launch_counts() -> dict:

@@ -1,7 +1,7 @@
 """3-D U-Net backbone, mirroring the VoxelMorph U-Net topology.
 
-Counterpart of ``multimodal_registration_tpu/models/unet.py`` (the int8 and
-z-tap Conv2D paths are not ported):
+Counterpart of ``multimodal_registration_tpu/models/unet.py`` (the z-tap
+Conv2D lowering, a TPU layout workaround, is not ported):
 
   * encoder: one 3³ conv + LeakyReLU(0.2) per level, 2x max-pool between
     levels;
@@ -18,16 +18,28 @@ activation, so in inference enc_0 runs as kernel K1 (``ops/conv_pool.py``),
 which writes only the pooled tensor. K1 has no backward: whenever a gradient
 is needed (grad mode on and a parameter or the input requires one) enc_0 is
 the unfused conv + ``max_pool_2x``, as in the JAX trainer. The other convs
-are ``F.conv3d`` (cuDNN), as the JAX package leaves them to XLA. ``pool_tie``
-is the tie rule of the pools' backward (``ops/pool.py``).
+are ``F.conv3d`` (cuDNN), as the JAX package leaves them to XLA; in float32
+they run in full float32, not cuDNN's default TF32. ``pool_tie`` is the tie
+rule of the pools' backward (``ops/pool.py``).
+
+int8 inference (``quant="int8"``): a block whose input has at least
+``quant_min_cin`` (64) channels runs the int8 conv, kernel K8
+(``ops/conv_int8.py``), with the calibrated activation scale ``amax`` of its
+input; thinner blocks and the fused enc_0 stay in the compute type. In
+calibration mode (``calibrating``) such a block records the running
+``max|x|`` of its input in float32 and runs the normal conv.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_registration_torch.device import full_fp32_convs
+from multimodal_registration_torch.ops.conv_int8 import conv3_int8
 from multimodal_registration_torch.ops.conv_pool import conv3_lrelu_pool
 from multimodal_registration_torch.ops.pool import max_pool_2x
 from multimodal_registration_torch.ops.warp import needs_grad
@@ -43,17 +55,36 @@ def _ndhwc(x):
 
 class ConvBlock(nn.Module):
     """3³ SAME conv + LeakyReLU(0.2) in the compute ``dtype`` (float32
-    parameters, cast per call like Flax's ``nn.Conv(dtype=...)``)."""
+    parameters, cast per call like Flax's ``nn.Conv(dtype=...)``), or the
+    int8 conv when ``quant == "int8"`` and ``cin >= quant_min_cin``
+    (``quantizable``; ``amax`` then holds the activation scale)."""
 
-    def __init__(self, cin: int, cout: int, dtype=torch.bfloat16, device=None):
+    def __init__(self, cin: int, cout: int, dtype=torch.bfloat16, device=None,
+                 quant: str = "", quant_min_cin: int = 64):
         super().__init__()
         self.dtype = dtype
         self.conv = nn.Conv3d(cin, cout, 3, padding=1, device=device)
+        self.quantizable = quant == "int8" and cin >= quant_min_cin
+        self.amax = None        # calibrated max|x| of the input (a float32 number)
+        self.calibrating = False
+        self.recorded = None    # running max|x| of the calibration (a device scalar)
 
-    def forward(self, x):
+    def forward(self, x, impl=None):
+        if self.quantizable and self.calibrating:
+            m = x.float().abs().amax()
+            self.recorded = m if self.recorded is None else torch.maximum(self.recorded, m)
+        elif self.quantizable:
+            if self.amax is None:
+                raise ValueError(
+                    "quantize='int8' needs calibrated activation scales: apply "
+                    "with a 'quant' collection (models/quantize.py::calibrate_scales)")
+            return conv3_int8(x.to(self.dtype), self.conv.weight, self.conv.bias, self.amax,
+                              0.2, impl=impl)
         w = self.conv.weight.to(self.dtype)
         b = self.conv.bias.to(self.dtype)
-        y = F.conv3d(_ncdhw(x.to(self.dtype)), w, b, padding=1)
+        # in float32, cuDNN would otherwise run the conv in TF32 (fault F5)
+        with full_fp32_convs() if self.dtype == torch.float32 else contextlib.nullcontext():
+            y = F.conv3d(_ncdhw(x.to(self.dtype)), w, b, padding=1)
         return _ndhwc(F.leaky_relu(y, 0.2))
 
     def forward_pooled(self, x, impl=None):
@@ -70,7 +101,7 @@ def _upsample_nearest_2x(x):
 
 class Unet(nn.Module):
     def __init__(self, in_channels: int, enc_nf, dec_nf, nb_upsample_skips: int = 0,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, quant: str = ""):
         super().__init__()
         self.enc_nf, self.dec_nf = tuple(enc_nf), tuple(dec_nf)
         self.nb_upsample_skips = nb_upsample_skips
@@ -79,16 +110,16 @@ class Unet(nn.Module):
         skip_ch = [in_channels]
         ch = in_channels
         for i, f in enumerate(self.enc_nf):
-            self.add_module(f"enc_{i}", ConvBlock(ch, f, dtype, device))
+            self.add_module(f"enc_{i}", ConvBlock(ch, f, dtype, device, quant))
             ch = f
             skip_ch.append(f)
         for i, f in enumerate(self.dec_nf[: nb_levels - 1]):
-            self.add_module(f"dec_{i}", ConvBlock(ch, f, dtype, device))
+            self.add_module(f"dec_{i}", ConvBlock(ch, f, dtype, device, quant))
             ch = f
             if i < nb_levels - 1 - nb_upsample_skips:
                 ch += skip_ch.pop()
         for j, f in enumerate(self.dec_nf[nb_levels - 1:]):
-            self.add_module(f"final_{j}", ConvBlock(ch, f, dtype, device))
+            self.add_module(f"final_{j}", ConvBlock(ch, f, dtype, device, quant))
             ch = f
         self.out_channels = ch
 
@@ -104,13 +135,13 @@ class Unet(nn.Module):
                 x = block.forward_pooled(x, impl=impl)
                 skips.append(None)  # never popped; keeps pop order aligned
                 continue
-            x = block(x)
+            x = block(x, impl=impl)
             skips.append(x)
             x = max_pool_2x(x, tie=pool_tie, impl=impl)
         for i in range(len(self.dec_nf[: nb_levels - 1])):
-            x = getattr(self, f"dec_{i}")(x)
+            x = getattr(self, f"dec_{i}")(x, impl=impl)
             if i < nb_levels - 1 - self.nb_upsample_skips:
                 x = torch.cat([_upsample_nearest_2x(x), skips.pop()], dim=-1)
         for j in range(len(self.dec_nf[nb_levels - 1:])):
-            x = getattr(self, f"final_{j}")(x)
+            x = getattr(self, f"final_{j}")(x, impl=impl)
         return x

@@ -12,6 +12,14 @@ Outputs: ``moved``, ``warp`` (the field at int-res, the reference
 trainer's loss reads neither ``moved`` nor, with ``grad_res`` 2,
 ``flow_fullres``; PyTorch removes no dead code, so ``forward`` takes
 ``with_moved=False`` / ``with_fullres=False`` to leave them out (``None``).
+
+With ``cfg.quantize == "int8"`` the U-Net's wide convs run in int8 (kernel
+K8) with the activation scales given by :meth:`VxmDense.set_quant_scales`,
+flat ``{"unet/enc_1/amax": value}`` as the JAX package's sidecar names them;
+built with ``quant_calibrate=True`` the model runs in full precision and
+records each quantizable conv's running input ``max|x|``
+(:meth:`VxmDense.recorded_scales`), as the JAX ``VxmDense(quant_calibrate=True)``
+does into its ``"quant"`` collection (``models/quantize.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -46,7 +55,9 @@ class VxmConfig:
     integrate_payload_dtype: str = "bfloat16"
     # inference-time SVF smoothing (voxels of the SVF grid) before integration
     svf_smooth_sigma: float = 0.0
-    # int8 inference; not ported yet (ROADMAP queue 1 item 12)
+    # int8 inference ("" = off): the U-Net's wide convs run int8 x int8 -> int32
+    # with calibrated activation scales (models/quantize.py); the flow head and
+    # thin convs stay in the compute type. Inference only.
     quantize: str = ""
 
     @classmethod
@@ -77,22 +88,47 @@ class VxmDense(nn.Module):
     """Inputs ``moving``/``fixed``: ``(B, X, Y, Z, 1)`` floats, spatial dims
     multiples of 16."""
 
-    def __init__(self, cfg: VxmConfig = VxmConfig(), device=None):
+    def __init__(self, cfg: VxmConfig = VxmConfig(), device=None, quant_calibrate: bool = False):
         super().__init__()
-        if cfg.quantize:
-            raise NotImplementedError(
-                "quantize='int8' is not ported yet (ROADMAP queue 1 item 12)")
         self.cfg = cfg
         self.dtype = _torch_dtype(cfg.compute_dtype)
         self.payload_dtype = (_torch_dtype(cfg.integrate_payload_dtype)
                               if cfg.integrate_payload_dtype else None)
         nus = int(math.floor(math.log2(cfg.svf_res))) if cfg.svf_res > 1 else 0
         self.unet = Unet(2, cfg.enc, cfg.dec, nb_upsample_skips=nus,
-                         dtype=self.dtype, device=device)
+                         dtype=self.dtype, device=device, quant=cfg.quantize)
         self.flow = nn.Conv3d(self.unet.out_channels, 3, 3, padding=1, device=device)
         with torch.no_grad():
             self.flow.weight.normal_(0.0, 1e-5)
             self.flow.bias.zero_()
+        self.quant_calibrate = quant_calibrate
+
+    def quant_blocks(self) -> dict:
+        """Scale key (``unet/<block>/amax``) -> the quantizable ``ConvBlock``."""
+        return {f"unet/{name}/amax": block for name, block in self.unet.named_children()
+                if block.quantizable}
+
+    @property
+    def quant_calibrate(self) -> bool:
+        return any(b.calibrating for b in self.quant_blocks().values())
+
+    @quant_calibrate.setter
+    def quant_calibrate(self, on: bool) -> None:
+        for block in self.quant_blocks().values():
+            block.calibrating, block.recorded = bool(on), None
+
+    def set_quant_scales(self, scales) -> None:
+        """Give the quantizable convs their activation scales (flat ``{key:
+        amax}``; a conv without one raises when it runs; other keys are not
+        read)."""
+        for key, block in self.quant_blocks().items():
+            block.amax = None if scales is None or key not in scales else float(
+                np.float32(scales[key]))
+
+    def recorded_scales(self) -> dict:
+        """What calibration recorded so far, ``{key: numpy float32}``."""
+        return {k: np.float32(b.recorded.item()) for k, b in self.quant_blocks().items()
+                if b.recorded is not None}
 
     def forward(self, moving: torch.Tensor, fixed: torch.Tensor, impl=None,
                 with_moved: bool = True, with_fullres: bool = True,

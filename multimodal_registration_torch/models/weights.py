@@ -7,6 +7,11 @@ shape ``(3, 3, 3, Cin, Cout)``, ``params/unet/enc_0/conv/bias``,
 ``params/flow/kernel``, ... (the in-repo ``benchmarks/*.npz`` files). The
 port's module tree has the same names: ``unet.enc_0.conv.weight`` of shape
 ``(Cout, Cin, 3, 3, 3)``, ``flow.weight``, ...
+
+The int8 activation scales are the JAX package's ``"quant"`` collection, a
+nested dict ``{"unet": {"enc_1": {"amax": scalar}}}``; the port keeps them
+flat, ``{"unet/enc_1/amax": numpy float32}`` (:func:`quant_from_jax`,
+:func:`quant_to_jax`).
 """
 
 from __future__ import annotations
@@ -97,3 +102,22 @@ def grads_to_jax(model: torch.nn.Module) -> dict:
     if missing:
         raise ValueError(f"parameters without a gradient: {missing}")
     return params_to_jax({n: p.grad for n, p in model.named_parameters()})
+
+
+def quant_from_jax(quant) -> dict:
+    """The JAX ``"quant"`` collection (nested, or already flat) as the port's
+    flat scales, ``{"unet/enc_1/amax": numpy float32}``."""
+    flat = _flatten(quant) if any(isinstance(v, Mapping) for v in quant.values()) else quant
+    return {k: np.float32(np.asarray(v)) for k, v in flat.items()}
+
+
+def quant_to_jax(scales: dict) -> dict:
+    """Inverse of :func:`quant_from_jax`: the nested ``"quant"`` collection."""
+    out: dict = {}
+    for key, v in scales.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.float32(v)
+    return out

@@ -64,6 +64,8 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax():
     files = _port_sources()
     assert len(files) > 15, files
+    for new in ("ops/conv_int8.py", "models/quantize.py"):  # the int8 route is scanned too
+        assert os.path.join(PKG, new) in files, new
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -119,10 +121,9 @@ def test_settings_not_ported_yet_raise(tmp_path):
     # svf_smooth_sigma is ported (item 5): the model builds
     assert tvd.VxmDense(tvd.VxmConfig(enc=(4,) * 4, dec=(4,) * 6, svf_smooth_sigma=1.0),
                         device="cpu").cfg.svf_smooth_sigma == 1.0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tvd.VxmDense(tvd.VxmConfig(quantize="int8"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tconf.InferenceConfig.from_dict(dict(TINY, quantize="int8"))
+    # item 12's int8 inference is ported: the model builds and the config loads
+    assert tvd.VxmDense(tvd.VxmConfig(quantize="int8"), device="meta").quant_blocks()
+    assert tconf.InferenceConfig.from_dict(dict(TINY, quantize="int8")).quantize == "int8"
     with pytest.raises(NotImplementedError, match="item 15"):
         tconf.InferenceConfig.from_dict(dict(TINY, sharding={"data": 2}))
     # parsed and validated as in the JAX package before that

@@ -31,12 +31,20 @@ backward's formula summed in float64 (``self_warp_add_grad_float64``), which
 has the kernel's two roundings and no other. On the +-40 field and the
 constant shift many contributions meet in the border voxels and the plain
 bf16 scatter drifts: there the kernel may differ from it by 4 ulp plus the
-plain version's own gap to the float64 formula."""
+plain version's own gap to the float64 formula.
+
+K8 (the int8 conv) sums integers and repeats its plain version's float32
+quantization and epilogue one rounding at a time: its int32 sums and its
+outputs are equal to the plain version's, bit for bit. F5: a float32 model
+on the card with the caller's TF32 switched on agrees with the same model on
+the CPU within 1e-5 of the largest value (float32 sums in another order;
+TF32 would be about 1e-3)."""
 
 import pytest
 import torch
 
 from multimodal_registration_torch import kernels
+from multimodal_registration_torch.ops import conv_int8 as tci
 from multimodal_registration_torch.ops import conv_pool as tcp
 from multimodal_registration_torch.ops import pool as tpool
 from multimodal_registration_torch.ops import warp as tw
@@ -623,3 +631,108 @@ def test_float32_products_ignore_the_callers_tf32(cuda_device):
     want = affine_resample(vol, M, np.eye(4), (150, 130, 100), "linear", device="cpu")
     assert np.abs(got - want).max() <= 1e-5
     torch.testing.assert_close(gr, resize(small, (3.5, 2.5, 1.5)), atol=1e-6, rtol=0)
+
+
+# ---- K8: the int8 conv of the published widths, and fault F5 ---------------
+
+def _k8_inputs(shape, cin, cout, dtype, seed, device):
+    x = t(rand((*shape, cin), seed), dtype).to(device)
+    w = t(rand((cout, cin, 3, 3, 3), seed + 1, 0.05)).to(device)
+    b = t(rand((cout,), seed + 2, 0.1)).to(device)
+    return x, w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout", [256, 24, 3])
+@pytest.mark.parametrize("cin,shape", [(64, (1, 9, 10, 11)), (72, (2, 5, 6, 7)),
+                                       (256, (4, 6, 5, 3)), (512, (1, 7, 9, 6))])
+def test_k8_conv3_int8_equals_plain(cuda_device, dtype, cout, cin, shape):
+    """Sums and outputs bit for bit, at shapes that no tile of the kernel
+    divides (M is not a multiple of 128, Cin not always of 64), batch 1-4."""
+    x, w, b = _k8_inputs(shape, cin, cout, dtype, cin + cout, cuda_device)
+    before = kernels.CONV3_INT8.launches
+    got = tci.conv3_int8(x, w, b, 2.5)
+    sums = tci.conv3_int8(x, w, b, 2.5, sums=True)
+    torch.cuda.synchronize()
+    assert kernels.CONV3_INT8.launches == before + 2
+    assert got.dtype == dtype and got.shape == (*shape, cout) and sums.dtype == torch.int32
+    assert torch.equal(sums, tci.conv3_int8(x, w, b, 2.5, impl="plain", sums=True))
+    assert torch.equal(got, tci.conv3_int8(x, w, b, 2.5, impl="plain"))
+    # and the plain version on the CPU (the JAX package's arithmetic)
+    assert torch.equal(got.cpu(), tci.conv3_int8(x.cpu(), w.cpu(), b.cpu(), 2.5, impl="plain"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_an_amax_that_clips(cuda_device, dtype):
+    x, w, b = _k8_inputs((2, 8, 8, 8), 128, 64, dtype, 40, cuda_device)
+    xq = tci.quantize_act(x, 0.5)
+    assert int((xq.abs() == 127).sum()) > 0.1 * xq.numel()
+    for s in (False, True):
+        assert torch.equal(tci.conv3_int8(x, w, b, 0.5, sums=s),
+                           tci.conv3_int8(x, w, b, 0.5, impl="plain", sums=s))
+
+
+def test_k8_on_the_grid_equals_the_float32_block(cuda_device):
+    """The JAX ``test_grid_exact`` rule on the card: integer inputs and
+    weights on the int8 grid make the int8 block equal the float32 block."""
+    from multimodal_registration_torch.models.unet import ConvBlock
+
+    g = torch.Generator().manual_seed(41)
+    x = torch.randint(-127, 128, (1, 6, 7, 9, 64), generator=g).float().cuda()
+    k = torch.randint(-126, 127, (32, 64, 3, 3, 3), generator=g).float()
+    k[:, 0, 0, 0, 0] = 127.0
+    blocks = {q: ConvBlock(64, 32, torch.float32, "cuda", quant=q) for q in ("", "int8")}
+    for blk in blocks.values():
+        with torch.no_grad():
+            blk.conv.weight.copy_(k)
+            blk.conv.bias.copy_(torch.linspace(-1, 1, 32))
+    blocks["int8"].amax = 127.0
+    with torch.inference_mode():
+        assert torch.equal(blocks[""](x), blocks["int8"](x))
+
+
+def test_k8_refuses_grad_and_caches_its_weights(cuda_device):
+    x, w, b = _k8_inputs((1, 6, 6, 6), 64, 16, torch.bfloat16, 42, cuda_device)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        tci.conv3_int8(x, w.requires_grad_(), b, 1.0)
+    w = w.detach()
+    tci.conv3_int8(x, w, b, 1.0)
+    n = len(tci._PREPARED)
+    first = tci.conv3_int8(x, w, b, 1.0)
+    assert len(tci._PREPARED) == n  # the same parameters and scale: prepared once
+    with torch.no_grad():
+        w.mul_(2.0)  # a new version of w
+    second = tci.conv3_int8(x, w, b, 1.0)
+    assert not torch.equal(first, second)
+    assert torch.equal(second, tci.conv3_int8(x, w, b, 1.0, impl="plain"))
+
+
+def test_f5_float32_model_ignores_the_callers_tf32(cuda_device):
+    """Fault F5: with ``compute_dtype`` float32 every U-Net conv (K1's float32
+    kernel, the cuDNN convs, the head) runs in full float32 although the
+    caller switched cuDNN's TF32 on."""
+    from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
+
+    cfg = VxmConfig(enc=(16,) * 4, dec=(16,) * 6, compute_dtype="float32",
+                    integrate_payload_dtype="")
+    torch.manual_seed(43)
+    cpu = VxmDense(cfg, device="cpu").eval()
+    with torch.no_grad():
+        cpu.flow.weight.normal_(0.0, 1.0)  # a field of about a voxel
+    card = VxmDense(cfg, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    mov, fx = (torch.rand((1, 32, 32, 48, 1), generator=torch.Generator().manual_seed(s))
+               for s in (44, 45))
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            got = card(mov.cuda(), fx.cuda())
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    with torch.inference_mode():
+        want = cpu(mov, fx)
+    for k in ("svf", "warp"):
+        m = float(want[k].abs().max())
+        assert m > 0.1, k
+        assert float((got[k].cpu() - want[k]).abs().max()) <= 1e-5 * m, k
