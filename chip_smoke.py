@@ -304,7 +304,7 @@ def measure(timer, name, bound_, call, plain, library=None, n=10, plain_kw=None)
     PyTorch call computes the same function, that call's two times."""
     row = {"ms": timer(call, n=n), "plain_ms": timer(plain, **(plain_kw or {"n": 3, "reps": 3})),
            "bound": bound_, "library_ms": None, "library_device_ms": None}
-    row["device_ms"], row["device_ops"], _ = device_time(call, f"{name} call")
+    row["device_ms"], row["device_ops"], row["device_rows"] = device_time(call, f"{name} call")
     if library is not None:
         row["library_ms"] = timer(library, n=n)
         row["library_device_ms"], _, _ = device_time(library, f"{name} yardstick call")
@@ -828,6 +828,7 @@ K8_SHAPES = (
     ("dec_0", 256, 256, (10, 10, 12)),
 )
 K8_RAGGED = ("ragged, batch 2, odd Cout", 200, 75, (2, 21, 19, 13))
+PHASE7_BUDGET_S = 60  # of the script's 1200 s; about 35 s on an H100
 
 
 def k8_inputs(dev, batch_grid, cin, cout, seed):
@@ -867,15 +868,41 @@ def k8_check(label, x, w, b, amax, plain_device=None):
     return err
 
 
+def k8_build_report():
+    """What ``nvcc -Xptxas -v`` said of K8's conv kernel (registers, spills,
+    any wgmma serialisation), and what the runtime reports of it."""
+    import ctypes
+
+    from multimodal_registration_torch import kernels
+
+    log = kernels.BUILD_LOG.get("conv_int8.cu", {}).get("log", "")
+    lines, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = "conv3_int8_wgmma_kernel" in line
+        if inside and ("registers" in line or "spill" in line) or "serializ" in line.lower():
+            lines.append(line.strip())
+    attrs = (ctypes.c_int * 5)()
+    kernels.CONV3_INT8.launch_entry("conv3_int8_attributes", ctypes.addressof(attrs), count=False)
+    regs, local, static, dynamic, threads = list(attrs)
+    print(f"#   K8 conv3_int8_wgmma_kernel, ptxas: {' | '.join(lines) or log[:200]}")
+    print(f"#   K8 conv3_int8_wgmma_kernel: {regs} registers a thread, {local} bytes of local "
+          f"memory (spills), {static} + {dynamic} bytes of shared memory, {threads} threads a "
+          f"block", flush=True)
+    return {"registers": regs, "local_bytes": local, "smem_bytes": static + dynamic,
+            "ptxas": lines}
+
+
 def k8_phase(dev, timer, rehearsal):
     """7a: K8 at every int8 conv shape of the w256 forward and a ragged one,
     against its plain version (exact), timed beside its bound, its plain
     version and cuDNN's bf16 conv + LeakyReLU (the yardstick the port never
-    calls). Returns the row of each shape."""
+    calls); the conv kernel's registers, spills and shared memory. Returns
+    the row of each shape."""
     import torch
     import torch.nn.functional as F
 
-    from multimodal_registration_torch.ops.conv_int8 import conv3_int8
+    from multimodal_registration_torch.ops.conv_int8 import conv3_int8, padded_cin
 
     rows = []
     for label, cin, cout, grid in K8_SHAPES + (K8_RAGGED,):
@@ -902,12 +929,25 @@ def k8_phase(dev, timer, rehearsal):
                       inference(lambda: conv3_int8(x, w, b, amax, impl="plain")),
                       inference(lambda: F.leaky_relu(F.conv3d(xc, wb, bb, padding=1), 0.2)),
                       plain_kw={"n": 1, "reps": 1, "warmup": 1})
-        row.update(label=label, shape=list(bg), cin=cin, cout=cout, ops=ops)
-        dev_ms = "n/a" if row["device_ms"] is None else f"{row['device_ms']:.4f}"
-        print(f"#   K8 {label} {bg} {cin}->{cout}: {row['ms']:.4f} ms wrapper, {dev_ms} ms "
-              f"device in {row['device_ops']} operations, {ops / 1e12:.3f} Tops, bound "
+        # the quantize pass alone: bf16 x read, int8 xq (Cin padded to Cp) written
+        b_q = bound(vox * cin * 2 + vox * padded_cin(cin), 0, INT8_TENSOR_OPS)
+        by_op = {key: ms for ms, _, key in row.pop("device_rows")}
+        q_ms = sum(ms for key, ms in by_op.items() if "quantize_act" in key)
+        conv_ms = sum(ms for key, ms in by_op.items() if "conv3_int8" in key)
+        row.update(label=label, shape=list(bg), cin=cin, cout=cout, ops=ops,
+                   conv_device_ms=conv_ms, quantize_device_ms=q_ms, quantize_bound_ms=b_q[0])
+        if row["device_ms"] is None:
+            dev_ms = "device n/a"
+        else:
+            dev_ms = (f"{row['device_ms']:.4f} ms device ({conv_ms:.4f} conv + {q_ms:.4f} "
+                      f"quantize, its bound {b_q[0]:.4f} by bytes) = "
+                      f"{row['device_ms'] / b_k8[0]:.2f}x bound, "
+                      f"{row['device_ms'] / row['library_device_ms']:.3f}x cuDNN bf16")
+        print(f"#   K8 {label} {bg} {cin}->{cout}: {row['ms']:.4f} ms wrapper, {dev_ms}, in "
+              f"{row['device_ops']} operations, {ops / 1e12:.3f} Tops, bound "
               f"{b_k8[0]:.4f} ms ({b_k8[1]}), plain {row['plain_ms']:.2f} ms, cuDNN bf16 "
-              f"{row['library_ms']:.4f} ms", flush=True)
+              f"{row['library_ms']:.4f} ms ({row['library_device_ms'] or float('nan'):.4f} "
+              f"device)", flush=True)
         rows.append(row)
         del x, w, b, xc, wb, bb
     return rows
@@ -990,6 +1030,8 @@ def published_widths_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     numbers, counts = {}, {}
     print("# phase 7a: K8 at the int8 conv shapes of the w256 forward (160x160x192, batch 1)",
           flush=True)
+    if not rehearsal:
+        numbers["k8_build"] = k8_build_report()
     k8_rows = k8_phase(dev, timer, rehearsal)
     numbers["7a_s"] = time.perf_counter() - t_phase
 
@@ -1066,6 +1108,8 @@ def published_widths_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     check(after == sidecars, "phase 7 wrote under benchmarks/")
     numbers["7d"] = {"wall_s": wall, "timings": out["timings"], "sidecar_rel_diff": rel}
     numbers["total_s"] = time.perf_counter() - t_phase
+    print(f"#   phase 7: {numbers['total_s']:.1f} s of its budget of {PHASE7_BUDGET_S} s "
+          f"(7a {numbers['7a_s']:.1f} s)", flush=True)
     return k8_rows, counts, numbers
 
 
@@ -1639,6 +1683,7 @@ def main() -> None:
     timing["conv3_int8"] = dict(next(r for r in k8_rows if r["label"] == "dec_3"))
     timing["conv3_int8"]["shapes"] = [
         {k: r[k] for k in ("label", "shape", "cin", "cout", "ops", "ms", "device_ms",
+                           "conv_device_ms", "quantize_device_ms", "quantize_bound_ms",
                            "device_ops", "plain_ms", "library_ms", "library_device_ms")}
         | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]} for r in k8_rows]
 

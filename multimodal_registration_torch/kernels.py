@@ -200,12 +200,17 @@ WARP_LABELS_BWD = Kernel(
 )
 CONV3_INT8 = Kernel(
     "conv3_int8", "conv_int8.cu", "conv3_int8_launch",
-    # xq, wq, scale, bias, out, B, X, Y, Z, Cp, Cout, mode, slope, stream
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # xq, wq, scale, bias, out, B, X, Y, Z, then ops/conv_int8.py::Int8ConvPlan.launch_args
+    # (Cp, Cout, cout_pad, box x/y/z, boxes along x/y/z, n_tiles), mode, slope, stream
+    [_P, _P, _P, _P, _P, *[_I] * 4, *[_I] * 10, _I, _F, _P],
     "multimodal_registration_tpu/models/unet.py:173",
     entries={
         # the quantize pass that precedes each conv: x, xq, M, Cin, Cp, inv, is_bf16, stream
         "quantize_act_launch": [_P, _P, _L, _I, _I, _F, _I, _P],
+        # one wgmma m64n256k32 of the conv's layout (a test): a, b, out, kstep, stream
+        "wgmma_tile_launch": [_P, _P, _P, _I, _P],
+        # the conv kernel's registers, spills, static and dynamic shared memory, threads
+        "conv3_int8_attributes": [_P],
     },
 )
 KERNELS = (CONV3_LRELU_POOL, WARP_TRILINEAR, WARP_UP2X, MAX_POOL_2X_BWD,

@@ -23,6 +23,16 @@ are quantized and laid out once per parameter version, activation scale and
 stream (:func:`prepared_int8_weights`), and a call is two launches: the
 quantize pass, then the conv (``csrc/conv_int8.cu``). Inference only, as in
 the JAX package: asked for a gradient on the card, the wrapper raises.
+
+The conv kernel's tiling is computed here, by :class:`Int8ConvPlan`, and
+handed to the launcher, which checks it against the kernel's constants: a
+block owns a box of 2 (x) x 4 (y) x 16 (z) output voxels and 256 output
+channels; for each chunk of 64 input channels it stages, for each dz in
+{-1, 0, 1}, the halo box of 4 x 6 x 16 voxels at (x0 - 1, y0 - 1, z0 + dz),
+zeros outside the volume; tap (dx, dy, dz) of the x-plane ``xo`` of the box
+is then the 64 consecutive rows of the dz plane from :meth:`Int8ConvPlan.tap_row`.
+Two blocks (a cluster) own consecutive boxes and share each weight tile.
+``tests/test_torch_conv_int8_tiling.py`` walks this tiling on the CPU.
 """
 
 from __future__ import annotations
@@ -35,8 +45,11 @@ from multimodal_registration_torch import kernels
 from multimodal_registration_torch.ops.warp import needs_grad, use_kernel
 
 _K_CHUNK = 64  # input channels of one k-chunk of the kernel; Cin is padded to a multiple
-_N_TILE = 128  # output channels of one block of the kernel; Cout is padded to a multiple
+_N_TILE = 256  # output channels of one block of the kernel; Cout is padded to a multiple
 _MODES = {torch.int32: 0, torch.bfloat16: 1, torch.float32: 2}
+BOX = (2, 4, 16)  # output voxels of a block along x, y, z: one 64-row tile per x-plane
+HALO = (BOX[0] + 2, BOX[1] + 2, BOX[2])  # a dz plane of the staged halo (z shifted by dz)
+CLUSTER = 2  # blocks that share each weight tile
 
 
 def act_scales(amax) -> tuple[float, float]:
@@ -111,7 +124,7 @@ def gemm_int8_weights(wq: torch.Tensor, cp: int) -> torch.Tensor:
     """The kernel's B operand: ``wq (Cout, Cin, 3, 3, 3)`` int8 as a matrix
     ``(Cout_pad, 27 * cp)``, row ``n``, column ``k = tap * cp + ci`` with
     ``tap = (dx * 3 + dy) * 3 + dz``; Cin padded with zero channels to ``cp``,
-    Cout with zero rows to a multiple of the block's 128 output channels."""
+    Cout with zero rows to a multiple of the block's 256 output channels."""
     cout, cin = wq.shape[:2]
     m = F.pad(wq.permute(0, 2, 3, 4, 1), (0, cp - cin))  # (Cout, 3, 3, 3, cp)
     return F.pad(m.reshape(cout, 27 * cp), (0, 0, 0, -cout % _N_TILE)).contiguous()
@@ -119,6 +132,67 @@ def gemm_int8_weights(wq: torch.Tensor, cp: int) -> torch.Tensor:
 
 def padded_cin(cin: int) -> int:
     return -(-cin // _K_CHUNK) * _K_CHUNK
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class Int8ConvPlan:
+    """The conv kernel's tiling of ``x (B, X, Y, Z, Cin)`` -> ``Cout``
+    channels: what the launcher is given and what the kernel computes from
+    it. Boxes are numbered with z fastest, then y, x and the batch; tile
+    ``t`` is box pair ``t // n_blocks_n`` (boxes ``2 p`` and ``2 p + 1``, the
+    two blocks of a cluster) at output channels ``256 (t % n_blocks_n)``.
+    A last box without a partner leaves the second block of its cluster
+    idle: it loads zeros and stores nothing."""
+
+    def __init__(self, shape, cout: int):
+        self.B, self.X, self.Y, self.Z, self.cin = (int(s) for s in shape)
+        self.cout = int(cout)
+        self.cp = padded_cin(self.cin)
+        self.chunks = self.cp // _K_CHUNK
+        self.cout_pad = _cdiv(self.cout, _N_TILE) * _N_TILE
+        self.n_blocks_n = self.cout_pad // _N_TILE
+        self.boxes_xyz = (_cdiv(self.X, BOX[0]), _cdiv(self.Y, BOX[1]), _cdiv(self.Z, BOX[2]))
+        self.n_boxes = self.B * self.boxes_xyz[0] * self.boxes_xyz[1] * self.boxes_xyz[2]
+        self.n_pairs = _cdiv(self.n_boxes, CLUSTER)
+        self.n_tiles = self.n_pairs * self.n_blocks_n
+
+    def tile(self, t: int, rank: int) -> tuple[int, int]:
+        """``(box, first output channel)`` of block ``rank`` of the cluster
+        that takes tile ``t``; ``box >= n_boxes`` is an idle block."""
+        return CLUSTER * (t // self.n_blocks_n) + rank, _N_TILE * (t % self.n_blocks_n)
+
+    def box_origin(self, box: int) -> tuple[int, int, int, int]:
+        """``(b, x0, y0, z0)`` of output box ``box`` (``b == B`` past the last)."""
+        nbx, nby, nbz = self.boxes_xyz
+        r, bz = divmod(box, nbz)
+        r, by = divmod(r, nby)
+        b, bx = divmod(r, nbx)
+        return b, bx * BOX[0], by * BOX[1], bz * BOX[2]
+
+    def halo_origin(self, box: int, dz: int) -> tuple[int, int, int, int]:
+        """``(b, x, y, z)`` of the first voxel of the staged dz plane
+        (``dz`` in -1, 0, 1); voxels outside the volume read as zeros."""
+        b, x0, y0, z0 = self.box_origin(box)
+        return b, x0 - 1, y0 - 1, z0 + dz
+
+    @staticmethod
+    def tap_row(xo: int, dx: int, dy: int) -> int:
+        """First row of the dz plane (rows of 64 channels, ``(x, y, z)``
+        row-major over ``HALO``) that tap ``(dx, dy, .)`` of x-plane ``xo``
+        of the box reads: its 64 rows ``(yi, zi)`` are consecutive."""
+        return ((xo + 1 + dx) * HALO[1] + 1 + dy) * HALO[2]
+
+    def weight_col(self, tap: int, chunk: int) -> int:
+        """First column of the weight matrix (:func:`gemm_int8_weights`)
+        for tap ``(dx + 1) * 9 + (dy + 1) * 3 + dz + 1`` and input chunk ``chunk``."""
+        return tap * self.cp + chunk * _K_CHUNK
+
+    def launch_args(self) -> tuple:
+        """The tiling arguments of ``conv3_int8_launch``, after the shape."""
+        return (self.cp, self.cout, self.cout_pad, *BOX, *self.boxes_xyz, self.n_tiles)
 
 
 # (data_ptr, _version) of w and b, amax, device, stream -> (w, b, matrix, scale, bias)
@@ -173,18 +247,21 @@ def conv3_int8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, amax,
     if w.device != x.device or b.device != x.device:
         raise ValueError("conv3_int8: x, w and b on different devices")
     B, X, Y, Z, Cin = x.shape
-    Cout, cp = w.shape[0], padded_cin(Cin)
+    plan = Int8ConvPlan(x.shape, w.shape[0])
     wk, scale, bias = prepared_int8_weights(w, b, amax)
     _, inv = act_scales(amax)
     x = x.contiguous()
-    xq = torch.empty((B, X, Y, Z, cp), dtype=torch.int8, device=x.device)
-    out = torch.empty((B, X, Y, Z, Cout), dtype=torch.int32 if sums else x.dtype, device=x.device)
+    xq = torch.empty((B, X, Y, Z, plan.cp), dtype=torch.int8, device=x.device)
+    out = torch.empty((B, X, Y, Z, plan.cout), dtype=torch.int32 if sums else x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
     stream = kernels.stream_of(x)
     with kernels.on_device_of(x):
         kernels.CONV3_INT8.launch_entry(
-            "quantize_act_launch", x.data_ptr(), xq.data_ptr(), B * X * Y * Z, Cin, cp, inv,
+            "quantize_act_launch", x.data_ptr(), xq.data_ptr(), B * X * Y * Z, Cin, plan.cp, inv,
             int(x.dtype == torch.bfloat16), stream, count=False)
         kernels.CONV3_INT8.launch(
             xq.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            B, X, Y, Z, cp, Cout, _MODES[out.dtype], float(neg_slope), stream)
+            B, X, Y, Z, *plan.launch_args(), _MODES[out.dtype], float(neg_slope), stream)
     return out

@@ -8,8 +8,8 @@ end-to-end numbers can be compared under the same conditions of card and host:
 checkout's own ``chip_smoke.py``, started from that checkout's root, and
 builds its own kernels. Every run's full output goes to ``<out>/<run>.txt``;
 printed are its lines that carry the end-to-end numbers (forward, training
-step, profiles, the integration), its ``kernels`` line and the card's name and
-power limit. Exits non-zero if a run failed.
+step, profiles, the integration, K8's shapes, the published widths' forwards),
+its ``kernels`` line and the card's name and power limit. Exits non-zero if a run failed.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 KEEP = ("#   forward:", "#   training step:", "#   profile (", "#   integration (",
-        "#   the 5 squaring steps", "# forward_ms", '{"kernels"', "NVIDIA", "FAIL")
+        "#   the 5 squaring steps", "#   K8 ", "#   7b ", "#   7c ", "# forward_ms", '{"kernels"',
+        "NVIDIA", "FAIL")
 
 
 def main() -> None:

@@ -35,7 +35,10 @@ plain version's own gap to the float64 formula.
 
 K8 (the int8 conv) sums integers and repeats its plain version's float32
 quantization and epilogue one rounding at a time: its int32 sums and its
-outputs are equal to the plain version's, bit for bit. F5: a float32 model
+outputs are equal to the plain version's, bit for bit, also at shapes that
+its boxes of 2 x 4 x 16 voxels do not divide (an idle block in the last
+cluster, batch 4 with X 1, two blocks of output channels); one wgmma of its
+layout equals the host product of the same int8 values. F5: a float32 model
 on the card with the caller's TF32 switched on agrees with the same model on
 the CPU within 1e-5 of the largest value (float32 sums in another order;
 TF32 would be about 1e-3)."""
@@ -660,6 +663,61 @@ def test_k8_conv3_int8_equals_plain(cuda_device, dtype, cout, cin, shape):
     assert torch.equal(got, tci.conv3_int8(x, w, b, 2.5, impl="plain"))
     # and the plain version on the CPU (the JAX package's arithmetic)
     assert torch.equal(got.cpu(), tci.conv3_int8(x.cpu(), w.cpu(), b.cpu(), 2.5, impl="plain"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cin,cout", [
+    ((1, 4, 8, 24), 64, 256),   # Z 24: a full and a ragged z box
+    ((1, 2, 4, 12), 72, 75),    # Z 12, a single box: the cluster's second block idle
+    ((1, 5, 4, 11), 200, 3),    # Z 11, three boxes (odd): the last cluster's partner idle
+    ((1, 5, 9, 13), 128, 24),   # nine boxes
+    ((4, 1, 6, 20), 64, 75),    # batch 4 with X 1
+    ((1, 3, 3, 17), 72, 256),   # Z 17: a z box of one voxel
+    ((1, 4, 4, 16), 64, 300),   # two blocks of 256 output channels
+])
+def test_k8_tiling_edges_equal_plain(cuda_device, dtype, shape, cin, cout):
+    """The wgmma kernel's boxes of 2 x 4 x 16 voxels at shapes that none
+    divides: sums and outputs bit for bit, against the plain version on the
+    card and on the CPU."""
+    x, w, b = _k8_inputs(shape, cin, cout, dtype, 3 * cin + cout, cuda_device)
+    before = kernels.CONV3_INT8.launches
+    got = tci.conv3_int8(x, w, b, 2.0)
+    sums = tci.conv3_int8(x, w, b, 2.0, sums=True)
+    torch.cuda.synchronize()
+    assert kernels.CONV3_INT8.launches == before + 2
+    assert torch.equal(sums, tci.conv3_int8(x, w, b, 2.0, impl="plain", sums=True))
+    assert torch.equal(got, tci.conv3_int8(x, w, b, 2.0, impl="plain"))
+    assert torch.equal(sums.cpu(), tci.conv3_int8(x.cpu(), w.cpu(), b.cpu(), 2.0, impl="plain",
+                                                  sums=True))
+    assert torch.equal(got.cpu(), tci.conv3_int8(x.cpu(), w.cpu(), b.cpu(), 2.0, impl="plain"))
+
+
+def test_k8_clusters_walk_many_tiles(cuda_device):
+    """More tiles (300 pairs of boxes) than clusters on the card: each
+    cluster of the persistent kernel walks several, and the next tile's loads
+    overlap the last one's epilogue."""
+    x, w, b = _k8_inputs((1, 40, 40, 48), 64, 256, torch.bfloat16, 44, cuda_device)
+    assert tci.Int8ConvPlan(x.shape, 256).n_tiles == 300
+    for s in (False, True):
+        assert torch.equal(tci.conv3_int8(x, w, b, 2.0, sums=s),
+                           tci.conv3_int8(x, w, b, 2.0, impl="plain", sums=s))
+
+
+@pytest.mark.parametrize("kstep", [0, 1])
+def test_k8_one_wgmma_equals_the_host_product(cuda_device, kstep):
+    """One wgmma m64n256k32 s8 through the conv's descriptors (64-byte
+    swizzle, the second k-step at +32 bytes) and fragment layout, from tiles
+    that TMA staged, against the product of the same int8 values on the host."""
+    g = torch.Generator().manual_seed(50 + kstep)
+    a = torch.randint(-127, 128, (64, 64), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (256, 64), generator=g, dtype=torch.int8)
+    ad, bd = a.to(cuda_device), b.to(cuda_device)
+    out = torch.empty((64, 256), dtype=torch.int32, device=cuda_device)
+    kernels.CONV3_INT8.launch_entry("wgmma_tile_launch", ad.data_ptr(), bd.data_ptr(),
+                                    out.data_ptr(), kstep, kernels.stream_of(ad), count=False)
+    torch.cuda.synchronize()
+    k = slice(32 * kstep, 32 * kstep + 32)
+    assert torch.equal(out.cpu(), (a[:, k].long() @ b[:, k].long().T).int())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
