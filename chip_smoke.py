@@ -57,7 +57,22 @@ Phases (any failure exits non-zero):
          the lazy calibration writes a sidecar into a temp directory, the
          ``quant-calibrate`` command another one; they agree, and nothing is
          written under ``benchmarks/``;
-  8. the report, and the card's name and power limit.
+  8. the BIDS batch pipeline at the published widths on the in-repo w256
+     checkpoint, over three subjects (one with a session; T2w at 6a's fixed
+     layout, T1w at its moving layout):
+     8a. ``run_batch`` with write-behind saves and the native prefetch:
+         s/subject, timings by phase, the device's idle share;
+     8b. the same subjects through a loop of ``run_subject``, synchronous
+         writes: s/subject, and the output tree equal to 8a's byte for byte
+         but for the times of writing;
+     8c. one subject with the opt-affine fallback forced: the affine warp
+         (K2) against its plain version;
+     8d. one subject in int8 with the in-repo sidecar (K8 in the pipeline)
+         against ``register()`` through the plain versions; nothing under
+         ``benchmarks/`` changes;
+     8e. the native NIfTI reader and gzip writer against the Python ones on
+         the largest output file, in MB/s, the arrays equal;
+  9. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -1368,6 +1383,374 @@ def real_scan_phases(dev, timer, rehearsal, cfg, params, fx_np, mov_np, tmp):
     return counts, numbers
 
 
+PHASE8_BUDGET_S = 150  # of the script's 1200 s
+PIPELINE_SUBJECTS = ("sub-01", "sub-02", "sub-03/ses-01")
+
+
+def bids_tree(root, fixed, moving):
+    """Phase 8's BIDS dataset: three subjects, one with a session, each with
+    a T2w at ``fixed`` and a T1w at ``moving`` (``(shape, voxel mm)``),
+    tubes from other seeds and shifts (sub-03's T1w rotated 5 degrees), and
+    a JSON sidecar beside each T1w."""
+    import numpy as np
+
+    from multimodal_registration_torch.utils import nifti
+
+    data = os.path.join(root, "data")
+    for i, sub in enumerate(PIPELINE_SUBJECTS):
+        anat = os.path.join(data, sub, "anat")
+        os.makedirs(anat)
+        prefix = sub.replace("/", "_")
+        fa = scan_affine(*fixed, shift=(0.4 * i, -0.3 * i, 0.0))
+        ma = scan_affine(*moving, rot_deg=5.0 if i == 2 else 0.0, shift=(0.5 * i, 0.0, 1.0))
+        nifti.save(nifti.NiftiImage(tube_scan(fixed[0], fa, 30 + i), fa),
+                   os.path.join(anat, f"{prefix}_T2w.nii.gz"))
+        nifti.save(nifti.NiftiImage(tube_scan(moving[0], ma, 40 + i, shift_mm=1.5 + i), ma),
+                   os.path.join(anat, f"{prefix}_T1w.nii.gz"))
+        with open(os.path.join(anat, f"{prefix}_T1w.json"), "w") as f:
+            json.dump({"RepetitionTime": 2.0, "EchoTime": 0.0035}, f)
+    return data
+
+
+def _busy_ms(prof):
+    """Device time summed over every kernel, copy and memset a profile saw."""
+    return sum(_dev_us(e) for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
+
+
+def _by_phase(results):
+    """Each ``timings`` phase, mean over the subjects (s)."""
+    keys = sorted({k for r in results for k in r.timings})
+    return {k: statistics.mean(r.timings.get(k, 0.0) for r in results) for k in keys}
+
+
+def _tree(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def compare_trees(a, b):
+    """8a's and 8b's outputs: the same files, each the same bytes, except
+    the times of writing: the CSVs' first column (``Timestamp``), and the
+    ``seconds`` and ``timings`` of the logs and the summary. Returns the
+    files compared with those left out."""
+    import csv
+
+    names = _tree(a)
+    check(names == _tree(b), f"8a and 8b wrote other files: {sorted(set(names) ^ set(_tree(b)))}")
+    lenient = []
+    for n in names:
+        pa, pb = os.path.join(a, n), os.path.join(b, n)
+        if n.endswith(".csv"):
+            rows = []
+            for p in (pa, pb):
+                with open(p, newline="") as f:
+                    rows.append([r[1:] for r in csv.reader(f)])
+            check(rows[0] == rows[1], f"8a and 8b differ in {n} (beyond the timestamps)")
+            lenient.append(n)
+        elif n.endswith(".log") or n == "batch_summary.json":
+            docs = []
+            for p in (pa, pb):
+                with open(p) as f:
+                    d = json.load(f)
+                for k in ("seconds", "timings", "total_seconds"):
+                    d.pop(k, None)
+                if "per_subject_seconds" in d:
+                    d["per_subject_seconds"] = sorted(d["per_subject_seconds"])
+                docs.append(d)
+            check(docs[0] == docs[1], f"8a and 8b differ in {n} (beyond the times)")
+            lenient.append(n)
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                check(fa.read() == fb.read(), f"8a and 8b wrote other bytes to {n}")
+    return names, lenient
+
+
+def native_vs_python(paths, rehearsal):
+    """8e: NIfTI decode and gz write, native against Python, in MB/s of the
+    uncompressed stream, on ``paths``; the native reader's array equal to
+    the Python reader's."""
+    import gzip
+    import io
+
+    import numpy as np
+
+    from multimodal_registration_torch.utils import native, nifti
+
+    rows = []
+    for p in paths:
+        t0 = time.perf_counter()
+        d_native, a_native = native.load_nifti_native(p)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        img = nifti.load(p)
+        d_py = img.get_fdata(np.float32)
+        t_py = time.perf_counter() - t0
+        check(np.array_equal(d_native, d_py) and np.array_equal(
+            a_native, img.affine.astype(np.float32).astype(np.float64)),
+            f"8e: the native reader disagrees with the Python reader on {p}")
+        with gzip.open(p, "rb") as f:
+            payload = f.read()
+        mb = len(payload) / 1e6
+        out = p + ".8e.gz"
+        writes = {}
+        t0 = time.perf_counter()
+        check(native.write_gz_native(out, payload, 1), "8e: the native gzip writer is missing")
+        writes["native_gz1"] = time.perf_counter() - t0
+        check(gzip.decompress(open(out, "rb").read()) == payload, "8e: the native gz file differs")
+        t0 = time.perf_counter()
+        with open(out, "wb") as f:
+            f.write(nifti._gz_compress_adaptive(payload))
+        writes["python_adaptive"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bio = io.BytesIO()
+        with gzip.GzipFile(fileobj=bio, mode="wb", mtime=0, compresslevel=1) as f:
+            f.write(payload)
+        with open(out, "wb") as f:
+            f.write(bio.getvalue())
+        writes["python_gzip1"] = time.perf_counter() - t0
+        os.remove(out)
+        row = {"file": os.path.basename(p), "mb": mb, "gz_mb": os.path.getsize(p) / 1e6,
+               "decode_native_mb_s": mb / t_native, "decode_python_mb_s": mb / t_py,
+               **{f"write_{k}_mb_s": mb / v for k, v in writes.items()}}
+        print(f"#   8e: {row['file']} ({mb:.1f} MB raw, {row['gz_mb']:.1f} MB on disk): decode "
+              f"native {row['decode_native_mb_s']:.1f} MB/s, Python {row['decode_python_mb_s']:.1f}"
+              f" MB/s (arrays equal); gz write native level 1 "
+              f"{row['write_native_gz1_mb_s']:.1f} MB/s, Python adaptive "
+              f"{row['write_python_adaptive_mb_s']:.1f}, Python gzip level 1 "
+              f"{row['write_python_gzip1_mb_s']:.1f} (host clock)", flush=True)
+        rows.append(row)
+    return rows
+
+
+def pipeline_phase(dev, rehearsal, tmp):
+    """Phase 8: the BIDS batch pipeline at the published widths on the
+    in-repo w256 checkpoint, over :func:`bids_tree`'s three subjects:
+    8a ``run_batch`` (write-behind and native prefetch), 8b the same subjects
+    through a loop of ``run_subject`` with synchronous writes, whose output
+    tree must equal 8a's, 8c the opt-affine fallback (K2's warp held against
+    its plain version), 8d int8 with the in-repo sidecar (against the plain
+    path), 8e the native NIfTI runtime against the Python reader and writer.
+    Returns the launch counts of 8a-8d and the phase's numbers."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.infer.config import InferenceConfig
+    from multimodal_registration_torch.infer.register import Registrar, load_params_any, register
+    from multimodal_registration_torch.infer.sharded import make_registrar
+    from multimodal_registration_torch.models.quantize import load_scales
+    from multimodal_registration_torch.ops.warp import warp
+    from multimodal_registration_torch.pipeline import batch, segment
+    from multimodal_registration_torch.pipeline.qc import QCReport
+    from multimodal_registration_torch.pipeline.runner import PipelineConfig, run_subject
+    from multimodal_registration_torch.utils import native, nifti
+
+    t_phase = time.perf_counter()
+    counts, numbers = {}, {}
+    cfg_path = os.path.join(HERE, "config", "config_inference.json")
+    if rehearsal:
+        fixed, moving = ((40, 40, 32), (0.8, 0.8, 1.2)), ((52, 52, 20), (0.625, 0.625, 2.0))
+    else:
+        fixed, moving = ((200, 200, 160), (0.8, 0.8, 1.2)), ((256, 256, 96), (0.625, 0.625, 2.0))
+    t0 = time.perf_counter()
+    lib = native.build_lib()  # raises when the library does not build
+    check(native.get_lib() is not None, "the native NIfTI runtime did not load")
+    check(not os.environ.get("MMREG_NO_PREFETCH"), "MMREG_NO_PREFETCH is set: 8a would not prefetch")
+    print(f"# phase 8: the BIDS batch pipeline (published widths, {cfg_path}), subjects "
+          f"{PIPELINE_SUBJECTS}, T2w {fixed}, T1w {moving}; native NIfTI runtime {lib} "
+          f"({time.perf_counter() - t0:.2f} s to build or find)", flush=True)
+    data = bids_tree(tmp, fixed, moving)
+    snapshot = {p: (open(p, "rb").read() if p.endswith(".json") else os.path.getmtime(p))
+                for p in glob.glob(os.path.join(HERE, "benchmarks", "*"))}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def profiled(fn):
+        """``fn()`` under the profiler on the card -> (result, wall s, busy ms)."""
+        if rehearsal:
+            t0 = time.perf_counter()
+            out = fn()
+            return out, time.perf_counter() - t0, None
+        from torch.profiler import ProfilerActivity, profile
+
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            wall = time.perf_counter() - t0
+            time.sleep(0.002)
+        return out, wall, _busy_ms(prof)
+
+    def report(label, results, span, wall, busy_ms):
+        """``span``: the seconds from the first subject's start to the end of
+        the last (the registrar is built before); ``wall``: the whole call."""
+        n = len(results)
+        check(n == len(PIPELINE_SUBJECTS) and all(r.ok for r in results),
+              f"{label}: subjects failed: {[(r.subject, r.error) for r in results if not r.ok]}")
+        row = {"s_per_subject": span / n, "span_s": span, "wall_s": wall,
+               "subject_s": {r.subject: r.seconds for r in results},
+               "timings": _by_phase(results)}
+        busy = "not measured"
+        if busy_ms is not None:
+            row.update(busy_ms_per_subject=busy_ms / n,
+                       idle_share=max(0.0, 1.0 - busy_ms / 1e3 / span))
+            busy = f"{busy_ms / n:.1f} ms a subject, idle share {row['idle_share']:.4f}"
+        print(f"#   {label}: {row['s_per_subject']:.3f} s/subject ({span:.3f} s for {n} subjects, "
+              f"each {json.dumps({k: round(v, 3) for k, v in row['subject_s'].items()})}; "
+              f"{wall:.3f} s with building the registrar); device busy {busy}", flush=True)
+        print(f"#   {label}: timings by phase, mean of {n} subjects (s): "
+              f"{json.dumps({k: round(v, 3) for k, v in row['timings'].items()})}", flush=True)
+        return row
+
+    # ---- 8a. run_batch: write-behind saves, native prefetch
+    print("# phase 8a: run_batch over the three subjects (write-behind, native prefetch), "
+          "under the profiler", flush=True)
+    out_a = os.path.join(tmp, "8a")
+    kernels.reset_launch_counts()
+    (results, summary), wall, busy = profiled(lambda: batch.run_batch(
+        data, out_a, W256_CKPT, config_path=cfg_path, device=dev.type))
+    counts["8a"] = kernels.launch_counts()
+    numbers["8a"] = report("8a", results, summary["total_seconds"], wall, busy)
+    launched("8a", counts["8a"], rehearsal=rehearsal)
+    check(rehearsal or counts["8a"]["conv3_lrelu_pool"] == len(PIPELINE_SUBJECTS),
+          f"8a: K1 ran {counts['8a']['conv3_lrelu_pool']} times, want one a subject")
+    check(not nifti._ASYNC_ENABLED and not nifti._PENDING_IMGS,
+          "8a: write-behind outlived run_batch")
+    res_files = glob.glob(os.path.join(out_a, "data_processed", "*", "res", "*.nii.gz"))
+    check(len(res_files) == 2 * len(PIPELINE_SUBJECTS), f"8a: res/ holds {res_files}")
+    finite_files(res_files)
+
+    # ---- 8b. the same through a loop of run_subject, synchronous writes
+    print("# phase 8b: the same subjects through a loop of run_subject on one registrar, "
+          "synchronous writes, no prefetch, under the profiler", flush=True)
+    with nifti._LOAD_CACHE_LOCK:  # start from the cache state 8a started from
+        nifti._LOAD_CACHE.clear()
+    nifti._LOAD_CACHE_ACTIVE = False
+    cfg = InferenceConfig.from_json(cfg_path)
+    params = load_params_any(W256_CKPT, cfg)
+    out_b = os.path.join(tmp, "8b")
+    path_processed, path_qc, path_log = batch.provision(out_b)
+
+    def loop():
+        registrar = make_registrar(cfg, params, device=dev)
+        qc = QCReport(path_qc)
+        t0 = time.time()
+        res = []
+        for s in PIPELINE_SUBJECTS:
+            res.append(run_subject(cfg, PipelineConfig(), registrar, data, path_processed, s,
+                                   segmenter=segment.default_segmenter(), qc=qc))
+            batch.write_subject_log(path_log, res[-1])
+        qc.write()
+        return res, batch.write_summary(out_b, res, time.time() - t0)
+
+    kernels.reset_launch_counts()
+    (results_b, summary_b), wall_b, busy_b = profiled(loop)
+    counts["8b"] = kernels.launch_counts()
+    numbers["8b"] = report("8b", results_b, summary_b["total_seconds"], wall_b, busy_b)
+    check(counts["8b"] == counts["8a"], f"8b launched {counts['8b']}, 8a {counts['8a']}")
+    names, lenient = compare_trees(out_a, out_b)
+    numbers["8a_vs_8b"] = {"files": len(names), "equal_but_times": lenient}
+    print(f"#   8a and 8b wrote the same {len(names)} files, byte for byte but for the times of "
+          f"writing in {lenient} (the CSVs' Timestamp column; seconds and timings of the logs "
+          f"and the summary)", flush=True)
+    numbers["8b_over_8a"] = numbers["8b"]["s_per_subject"] / numbers["8a"]["s_per_subject"]
+
+    # ---- 8c. opt-affine with the fallback forced: apply_affine_field on K2
+    print("# phase 8c: sub-01 with --opt-affine --min-sc-dice 101 (the centermass fallback: "
+          "apply_affine_field on K2, then register() again)", flush=True)
+    out_c = os.path.join(tmp, "8c")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_c, sum_c = batch.run_batch(data, out_c, W256_CKPT, config_path=cfg_path,
+                                   include_list=["sub-01"], opt_affine=True, min_sc_dice=101,
+                                   device=dev.type)
+    numbers["8c"] = {"wall_s": time.perf_counter() - t0, "timings": res_c[0].timings}
+    counts["8c"] = kernels.launch_counts()
+    launched("8c", counts["8c"], rehearsal=rehearsal)
+    check(res_c[0].ok and sum_c["n_affine_fallback"] == 1,
+          f"8c: the fallback was not taken: {sum_c} {res_c[0].error}")
+    check(rehearsal or counts["8c"]["conv3_lrelu_pool"] == 2,
+          f"8c: K1 ran {counts['8c']['conv3_lrelu_pool']} times, want 2 (two registrations)")
+    work = os.path.join(out_c, "data_processed", "sub-01")
+    field = segment.centermass_affine_field(
+        nifti.load(os.path.join(work, "seg", "sub-01_T2w_proc_seg.nii.gz")).get_fdata(),
+        nifti.load(os.path.join(work, "seg", "sub-01_T1w_proc_seg.nii.gz")).get_fdata())
+    mov_proc = nifti.load(os.path.join(work, "add_res", "sub-01_T1w_proc.nii.gz")).get_fdata()
+    got = nifti.load(os.path.join(work, "add_res", "sub-01_T1w_affine.nii.gz")).get_fdata()
+    with torch.inference_mode():
+        plain = warp(torch.as_tensor(mov_proc, dtype=torch.float32, device=dev),
+                     torch.as_tensor(field, device=dev), "linear", impl="plain").cpu().numpy()
+    err = float(np.abs(got - plain).max())
+    print(f"#   8c: {numbers['8c']['wall_s']:.3f} s; launches {counts['8c']}; the affine-aligned "
+          f"volume {mov_proc.shape} (K2) vs its plain version: max_abs_err {err:.3e} "
+          f"(tol 1e-5); max|field| {float(np.abs(field).max()):.3f} voxel", flush=True)
+    check(err <= 1e-5, "8c: apply_affine_field disagrees with the plain warp")
+    numbers["8c"]["k2_vs_plain"] = err
+
+    # ---- 8d. int8 with the in-repo sidecar: K8 inside the pipeline
+    print("# phase 8d: sub-01 with quantize int8 and the in-repo sidecar (K8 on 9 convs), "
+          "against register() through the plain versions", flush=True)
+    with open(cfg_path) as f:
+        settings = json.load(f)
+    cfg8_path = os.path.join(tmp, "config_inference_int8.json")
+    with open(cfg8_path, "w") as f:
+        json.dump(dict(settings, quantize="int8"), f)
+    out_d = os.path.join(tmp, "8d")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_d, _ = batch.run_batch(data, out_d, W256_CKPT, config_path=cfg8_path,
+                               include_list=["sub-01"], device=dev.type)
+    numbers["8d"] = {"wall_s": time.perf_counter() - t0, "timings": res_d[0].timings}
+    counts["8d"] = kernels.launch_counts()
+    check(res_d[0].ok, f"8d failed: {res_d[0].error}")
+    launched("8d", counts["8d"], names=SERVING + ("conv3_int8",), rehearsal=rehearsal)
+    check(rehearsal or counts["8d"]["conv3_int8"] == 9,
+          f"8d: K8 ran {counts['8d']['conv3_int8']} times, want 9")
+    cfg8 = InferenceConfig.from_json(cfg8_path)
+    reg_p = Registrar(cfg8, params, device=dev, impl="plain", quant_scales=load_scales(W256_SIDECAR))
+    pdir = os.path.join(tmp, "8d_plain")
+    os.makedirs(pdir)
+    anat = os.path.join(data, "sub-01", "anat")
+    for c in ("T2w", "T1w"):
+        shutil.copy(os.path.join(anat, f"sub-01_{c}.nii.gz"), pdir)
+    register(cfg8, reg_p, os.path.join(pdir, "sub-01_T2w.nii.gz"),
+             os.path.join(pdir, "sub-01_T1w.nii.gz"), fx_contrast="T2w")
+    work = os.path.join(out_d, "data_processed", "sub-01")
+    pairs = {"field": ("add_res", "sub-01_T1w_proc_field_to_T2w.nii.gz"),
+             "moved": ("res", "sub-01_T1w_proc_reg_to_T2w.nii.gz")}
+    d8 = {}
+    for k, (sub_dir, name) in pairs.items():
+        a = nifti.load(os.path.join(work, sub_dir, name)).get_fdata()
+        b = nifti.load(os.path.join(pdir, name)).get_fdata()
+        d8[k] = float(np.abs(a - b).max())
+    print(f"#   8d: {numbers['8d']['wall_s']:.3f} s; launches {counts['8d']}; against the plain "
+          f"path: field {d8['field']:.3e} voxel (tol 0.1), moved {d8['moved']:.3e} (tol 0.05)",
+          flush=True)
+    check(d8["field"] <= 0.1 and d8["moved"] <= 0.05, "8d: the int8 pipeline disagrees with the plain path")
+    numbers["8d"].update(d8)
+    del reg_p, params
+    after = {p: (open(p, "rb").read() if p.endswith(".json") else os.path.getmtime(p))
+             for p in glob.glob(os.path.join(HERE, "benchmarks", "*"))}
+    check(after == snapshot, "phase 8 changed something under benchmarks/")
+
+    # ---- 8e. the native NIfTI runtime against the Python reader and writer
+    print("# phase 8e: native against Python on sub-01's largest output (8a)", flush=True)
+    files = sorted(glob.glob(os.path.join(out_a, "data_processed", "sub-01", "*", "*.nii.gz")),
+                   key=os.path.getsize)[-1:]
+    numbers["8e"] = native_vs_python(files, rehearsal)
+
+    numbers["total_s"] = time.perf_counter() - t_phase
+    print(f"#   phase 8: {numbers['total_s']:.1f} s of its budget of {PHASE8_BUDGET_S} s",
+          flush=True)
+    return counts, numbers
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -1679,6 +2062,11 @@ def main() -> None:
         k8_rows, w256_launches, w256_numbers = published_widths_phase(dev, timer, rehearsal,
                                                                       fx_np, mov_np, td)
     print(f"#   phase 7 numbers: {json.dumps(w256_numbers)}")
+
+    # ---- 8. the BIDS batch pipeline ---------------------------------------------
+    with tempfile.TemporaryDirectory() as td:
+        pipe_launches, pipe_numbers = pipeline_phase(dev, rehearsal, td)
+    print(f"#   phase 8 numbers: {json.dumps(pipe_numbers)}")
     # K8's row: its widest call, dec_3 (512 -> 256 at 80x80x96); every shape in "shapes"
     timing["conv3_int8"] = dict(next(r for r in k8_rows if r["label"] == "dec_3"))
     timing["conv3_int8"]["shapes"] = [
@@ -1687,7 +2075,7 @@ def main() -> None:
                            "device_ops", "plain_ms", "library_ms", "library_device_ms")}
         | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]} for r in k8_rows]
 
-    # ---- 8. report -----------------------------------------------------------
+    # ---- 9. report -----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
     # before it: register() for K1-K3, run_training() for K4-K7, register()
     # with the published config in int8 (7d) for K8
@@ -1705,6 +2093,7 @@ def main() -> None:
             "launches_run_training": train_launches[k.name],
             **{f"launches_{phase}": n[k.name] for phase, n in scan_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in w256_launches.items()},
+            **{f"launches_{phase}": n[k.name] for phase, n in pipe_launches.items()},
             "max_abs_err": results[k.name]["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
@@ -1729,7 +2118,10 @@ def main() -> None:
           f"train_peak_mib {train_numbers['train_peak_mib']:.1f} "
           f"phase6_s {scan_numbers['total_s']:.1f} "
           f"w256_bf16_ms {w256_numbers['7b']['ms']:.4f} w256_int8_ms {w256_numbers['7c']['ms']:.4f} "
-          f"phase7_s {w256_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
+          f"phase7_s {w256_numbers['total_s']:.1f} "
+          f"pipeline_s_per_subject {pipe_numbers['8a']['s_per_subject']:.3f} "
+          f"sync_s_per_subject {pipe_numbers['8b']['s_per_subject']:.3f} "
+          f"phase8_s {pipe_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

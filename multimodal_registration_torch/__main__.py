@@ -12,6 +12,9 @@ without the sharding flags, plus ``--device``; ``--help`` lists them):
   eval-on-sc-seg       Dice etc. on segmentations (eval_reg_on_sc_seg.py)
   eval-with-mi         normalized mutual information (eval_reg_with_mi.py)
   eval-with-jacobian   Jacobian determinant / folding (eval_reg_with_jacobian.py)
+  pipeline             BIDS batch register + evaluate + QC
+                       (pipeline_bids_register_evaluate.py; --opt-affine for
+                       the _opt_affine variant, --model2-path for _two_steps)
 
 Pair registration (3d_reg.py) is ``python -m
 multimodal_registration_torch.infer.cli``, training (train_synthmorph.py)
@@ -31,6 +34,7 @@ COMMANDS = {
     "eval-on-sc-seg": ("multimodal_registration_torch.evalx.cli", "eval_on_sc_seg"),
     "eval-with-mi": ("multimodal_registration_torch.evalx.cli", "eval_with_mi"),
     "eval-with-jacobian": ("multimodal_registration_torch.evalx.cli", "eval_with_jacobian"),
+    "pipeline": ("multimodal_registration_torch.pipeline.batch", "main"),
 }
 
 

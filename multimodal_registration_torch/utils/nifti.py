@@ -4,14 +4,23 @@ Counterpart of ``multimodal_registration_tpu/utils/nifti.py``: the same
 header handling (sform, qform with quaternions, pixdim fallback,
 ``scl_slope``/``scl_inter``), the same ``aff2axcodes`` and the same adaptive
 multi-member ``.gz`` writer, so a file written here decodes to the same header
-fields and data as one written by the JAX package. Only the pure-Python zlib
-path is kept: the decoded-file cache, the write-behind thread and the native
-C++ writer of the JAX package are not part of the port.
+fields and data as one written by the JAX package (the same bytes, but for
+``descrip``, which names the package that wrote the file).
+
+What the batch pipeline switches on (``pipeline/batch.py``) is here too: the
+decoded-file LRU (``load(path, cached=True)``, primed by ``save`` once
+``enable_save_prime`` was called), write-behind (``enable_async_writes``:
+``save`` of a ``.gz`` file compresses and writes on one background thread,
+``load`` serves the pending content, ``flush_writes`` waits for the files) and
+the classic single-member writer through the native library
+(``MMREG_GZ_MODE=classic``, ``utils/native.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gzip
+import io
 import os
 import struct
 import threading
@@ -73,6 +82,13 @@ class NiftiHeader:
     def get_data_shape(self):
         ndim = int(self.dim[0])
         return tuple(int(d) for d in self.dim[1 : 1 + ndim])
+
+    def copy(self) -> "NiftiHeader":
+        """Independent copy (array fields copied): the decoded-file cache
+        hands these out, so a caller editing a header leaves the entry be."""
+        return dataclasses.replace(
+            self, dim=self.dim.copy(), pixdim=self.pixdim.copy(),
+            quatern=self.quatern.copy(), qoffset=self.qoffset.copy(), srow=self.srow.copy())
 
 
 def _quaternion_to_rotation(b, c, d, qfac):
@@ -234,13 +250,74 @@ def _affine_from_header(h: NiftiHeader) -> np.ndarray:
     return aff
 
 
-def load(path: str) -> NiftiImage:
-    """Load a ``.nii`` / ``.nii.gz`` file (parity: ``nib.load``)."""
+# Decoded-file LRU of the batch pipeline: a subject's outputs are read again
+# by the segmenter, the evaluators and QC. Keyed by (realpath, mtime_ns,
+# size), so a rewrite invalidates the entry. A hit is a per-caller view: the
+# data is shared and read-only, header and affine are the caller's own.
+# ``save`` primes the cache only once caching is in use (the first
+# ``load(cached=True)``, or ``enable_save_prime``), so that one-shot CLIs
+# neither decode what they wrote nor keep it.
+_LOAD_CACHE: "dict[tuple, NiftiImage]" = {}
+_LOAD_CACHE_LOCK = threading.Lock()
+_LOAD_CACHE_MAX = 8
+_LOAD_CACHE_ACTIVE = False
+
+
+def enable_save_prime() -> None:
+    """Let ``save`` prime the decoded-file cache (the pipeline calls this; the
+    first ``load(cached=True)`` does too)."""
+    global _LOAD_CACHE_ACTIVE
+    _LOAD_CACHE_ACTIVE = True
+
+
+def _cache_view(img: NiftiImage) -> NiftiImage:
+    """Per-caller view of a cached image: shared read-only data, own header."""
+    view = NiftiImage.__new__(NiftiImage)
+    view._data = img._data
+    view.affine = img.affine.copy()
+    view.header = img.header.copy()
+    return view
+
+
+def _cache_key(path: str):
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return (os.path.realpath(path), st.st_mtime_ns, st.st_size)
+
+
+def _cache_insert(key: tuple, img: NiftiImage) -> None:
+    img._data.flags.writeable = False
+    with _LOAD_CACHE_LOCK:
+        _LOAD_CACHE[key] = img
+        while len(_LOAD_CACHE) > _LOAD_CACHE_MAX:
+            _LOAD_CACHE.pop(next(iter(_LOAD_CACHE)))
+
+
+def load(path: str, cached: bool = False) -> NiftiImage:
+    """Load a ``.nii`` / ``.nii.gz`` file (parity: ``nib.load``).
+
+    A file whose write-behind save is still pending is served from memory.
+    ``cached=True`` consults and fills the decoded-file LRU. A file that does
+    not decode raises one ``ValueError`` naming it."""
+    pending = _pending_img(path)
+    if pending is not None:
+        return pending
+    key = None
+    if cached:
+        enable_save_prime()
+        key = _cache_key(path)
+        if key is not None:
+            with _LOAD_CACHE_LOCK:
+                img = _LOAD_CACHE.get(key)
+            if img is not None:
+                return _cache_view(img)
     opener = gzip.open if str(path).endswith(".gz") else open
     try:
         with opener(path, "rb") as f:
             raw = f.read()
-        return _parse_image(raw)
+        img = _parse_image(raw)
     except FileNotFoundError:
         raise
     except (OSError, EOFError, ValueError, IndexError, struct.error) as e:
@@ -248,6 +325,10 @@ def load(path: str) -> NiftiImage:
             f"corrupt or truncated NIfTI file {path!r}: "
             f"{e.__class__.__name__}: {e}"
         ) from e
+    if key is not None:
+        _cache_insert(key, img)
+        return _cache_view(img)
+    return img
 
 
 def _parse_image(raw: bytes) -> NiftiImage:
@@ -261,6 +342,67 @@ def _parse_image(raw: bytes) -> NiftiImage:
     data = np.frombuffer(raw, dtype=dtype, count=count, offset=offset)
     data = data.reshape(shape, order="F")
     return NiftiImage(np.ascontiguousarray(data), _affine_from_header(h), h)
+
+
+# ---- write-behind ------------------------------------------------------------
+#
+# The compression and disk write of a saved volume overlap the caller's next
+# steps (in the pipeline: a subject's segmentation, evaluation and QC).
+# Writes go through one background thread; ``load`` serves a pending file
+# from memory, and ``flush_writes()`` comes before any direct filesystem
+# consumer (the pipeline's reorganize step, its output check, an external
+# segmenter, the end of the run).
+_ASYNC_POOL = None
+_ASYNC_ENABLED = False
+_PENDING_LOCK = threading.Lock()
+_PENDING_FUTURES: "dict[str, object]" = {}
+_PENDING_IMGS: "dict[str, NiftiImage]" = {}
+
+
+def enable_async_writes() -> None:
+    """Make ``save`` of a ``.gz`` file return before the file is written."""
+    global _ASYNC_POOL, _ASYNC_ENABLED
+    if _ASYNC_POOL is None:
+        import atexit
+        from concurrent.futures import ThreadPoolExecutor
+
+        _ASYNC_POOL = ThreadPoolExecutor(1, thread_name_prefix="mmreg-nifti-write")
+        atexit.register(flush_writes)
+    _ASYNC_ENABLED = True
+
+
+def disable_async_writes() -> None:
+    """Flush pending writes and make ``save`` synchronous again. The pipeline
+    scopes write-behind to its run: later code that lists a directory would
+    not see a file still pending, though ``load`` of its path would work."""
+    global _ASYNC_ENABLED
+    _ASYNC_ENABLED = False
+    flush_writes()
+
+
+def flush_writes(prefix: str | None = None) -> None:
+    """Wait for the pending writes (all, or those under ``prefix``); then
+    re-raise the first writer's exception, once."""
+    with _PENDING_LOCK:
+        items = [(p, f) for p, f in _PENDING_FUTURES.items()
+                 if prefix is None or p.startswith(prefix)]
+    failure = None
+    for p, fut in items:
+        try:
+            fut.result()
+        except Exception as e:  # re-raised below, after every write has landed
+            failure = failure or e
+        with _PENDING_LOCK:
+            if _PENDING_FUTURES.get(p) is fut:
+                del _PENDING_FUTURES[p]
+    if failure is not None:
+        raise failure
+
+
+def _pending_img(path: str) -> "NiftiImage | None":
+    with _PENDING_LOCK:
+        img = _PENDING_IMGS.get(os.path.abspath(path))
+    return _cache_view(img) if img is not None else None
 
 
 # ---- adaptive .gz writer -----------------------------------------------------
@@ -297,7 +439,9 @@ def _gz_compress_adaptive(payload: bytes) -> bytes:
 
 
 def save(img: NiftiImage, path: str) -> None:
-    """Save a NiftiImage (parity: ``nib.save``)."""
+    """Save a NiftiImage (parity: ``nib.save``). Under write-behind
+    (:func:`enable_async_writes`) a ``.gz`` save returns before the file is
+    written; the caller must not mutate the data afterwards."""
     h = img.header
     img._sync_affine_into_header()
     data = img.dataobj
@@ -335,13 +479,57 @@ def save(img: NiftiImage, path: str) -> None:
     buf[344:348] = b"n+1\x00"
 
     payload = bytes(buf) + np.asfortranarray(data).tobytes(order="F")
-    if str(path).endswith(".gz"):
-        payload = _gz_compress_adaptive(payload)
+    if _ASYNC_ENABLED and _ASYNC_POOL is not None and str(path).endswith(".gz"):
+        # write-behind: the caller goes on and must not mutate `data` (the
+        # save contract); readers get the pending content from ``load``
+        key = os.path.abspath(path)
+        pending = NiftiImage(data, img.affine.copy(), h.copy())
+
+        def _job():
+            try:
+                _write_payload(path, payload)
+            finally:
+                with _PENDING_LOCK:
+                    if _PENDING_IMGS.get(key) is pending:
+                        del _PENDING_IMGS[key]
+
+        with _PENDING_LOCK:
+            _PENDING_IMGS[key] = pending
+            _PENDING_FUTURES[key] = _ASYNC_POOL.submit(_job)
+        return
+    _write_payload(path, payload)
+
+
+def _write_payload(path: str, payload: bytes) -> None:
+    """Write an uncompressed NIfTI byte stream to ``path`` (compressed when it
+    ends in ``.gz``), then prime the decoded-file cache with it. The ``.gz``
+    writer is the adaptive one, or with ``MMREG_GZ_MODE=classic`` one gzip
+    member at ``MMREG_GZ_LEVEL`` (default 1), through the native library
+    where it is built, else Python's ``gzip``."""
     # write-then-rename: a reader never sees a half-written file
     tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
-    with open(tmp, "wb") as f:
-        f.write(payload)
+    if str(path).endswith(".gz"):
+        if os.environ.get("MMREG_GZ_MODE", "adaptive") == "adaptive":
+            with open(tmp, "wb") as f:
+                f.write(_gz_compress_adaptive(payload))
+        else:
+            from multimodal_registration_torch.utils.native import write_gz_native
+
+            if not write_gz_native(tmp, payload):
+                bio = io.BytesIO()
+                level = int(os.environ.get("MMREG_GZ_LEVEL", 1))
+                with gzip.GzipFile(fileobj=bio, mode="wb", mtime=0, compresslevel=level) as f:
+                    f.write(payload)
+                with open(tmp, "wb") as f:
+                    f.write(bio.getvalue())
+    else:
+        with open(tmp, "wb") as f:
+            f.write(payload)
     os.replace(tmp, path)
+    if _LOAD_CACHE_ACTIVE:
+        key = _cache_key(path)
+        if key is not None:
+            _cache_insert(key, _parse_image(payload))
 
 
 def aff2axcodes(affine: np.ndarray, labels=(("L", "R"), ("P", "A"), ("I", "S"))) -> tuple:

@@ -181,7 +181,7 @@ def test_gen_apply_def_field_and_the_command_line(tmp_path, capsys):
     assert main([]) == 2 and main(["--help"]) == 0
     assert set(COMMANDS) == {"bids-registration", "bids-two-steps", "gen-apply-def-field",
                              "quant-calibrate", "eval-on-sc-seg", "eval-with-mi",
-                             "eval-with-jacobian"}
+                             "eval-with-jacobian", "pipeline"}
     capsys.readouterr()
 
 

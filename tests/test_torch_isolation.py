@@ -64,7 +64,8 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax():
     files = _port_sources()
     assert len(files) > 15, files
-    for new in ("ops/conv_int8.py", "models/quantize.py"):  # the int8 route is scanned too
+    for new in ("ops/conv_int8.py", "models/quantize.py",  # the int8 route is scanned too
+                "pipeline/batch.py", "pipeline/runner.py", "utils/native.py", "infer/sharded.py"):
         assert os.path.join(PKG, new) in files, new
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -159,6 +160,26 @@ def test_settings_not_ported_yet_raise(tmp_path):
     # the tile grid refuses tiles larger than the volume
     with pytest.raises(ValueError, match="subvol_size"):
         tpre.subvol_grid(sub, (64, 64, 8))
+
+    # item 16's batch pipeline is ported on one device; its multi-device
+    # layouts wait for item 15, and its command has no sharding flags
+    from multimodal_registration_torch.__main__ import main as port_main
+    from multimodal_registration_torch.infer.sharded import make_registrar
+    from multimodal_registration_torch.pipeline import run_batch
+
+    assert make_registrar(cfg, params, device="cpu").device == torch.device("cpu")
+    np.savez(tmp_path / "w.npz", **params_to_jax(params))
+    (tmp_path / "cfg.json").write_text(json.dumps(dict(TINY, compute_dtype="float32")))
+    for sharding in ({"space": 2}, {"data": 2}, {"data": 2, "space": 2}):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            run_batch(str(tmp_path), str(tmp_path / "out"), str(tmp_path / "w.npz"),
+                      config_path=str(tmp_path / "cfg.json"), sharding=sharding, device="cpu")
+    argv = ["pipeline", "--path-data", str(tmp_path), "--path-output", str(tmp_path / "out"),
+            "--model-path", str(tmp_path / "w.npz"), "--device", "cpu"]
+    for flag in ("--space", "--data-shard"):
+        with pytest.raises(SystemExit) as e:
+            port_main(argv + [flag, "2"])
+        assert e.value.code == 2
 
 
 def _run_smoke(cwd):
