@@ -72,7 +72,19 @@ Phases (any failure exits non-zero):
          ``benchmarks/`` changes;
      8e. the native NIfTI reader and gzip writer against the Python ones on
          the largest output file, in MB/s, the arrays equal;
-  9. the report, and the card's name and power limit.
+  9. the port's training learns (``tools/learn_check.py``), budget 180 s:
+     9a. the flagship model trained from scratch at 96^3, 16 labels, 3000
+         steps (the svf4 probe's configuration at ``TrainConfig``'s
+         ``svf_int_res``), held-out Dice and NMI at 1000, 2000 and 3000 steps:
+         both above the identity's at the end, and the mean loss of the last
+         200 steps below that of the first 200;
+     9b. a warm start from ``learned_ref_160x160x192_26lab.npz`` at
+         160x160x192, 26 labels, 300 steps: above the identity at step 0, and
+         Dice within 0.01 of step 0's after; nothing under ``benchmarks/``
+         changes;
+     9c. ``device_trace`` around three of 9a's training steps: the trace
+         names the kernels of K2, K4, K5, K6 and K7, and the launches per step;
+ 10. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -613,6 +625,42 @@ def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
           f"{timing['warp_labels_bwd']['bound_needed'][0]:.4f} ms by the entries needed")
 
 
+def fixed_batch_check(label, trainer, batch):
+    """One loss and backward of ``trainer``'s model on ``batch`` through the
+    kernels and through their plain versions: the loss within 1e-3, each
+    parameter's gradient within 0.1 of its largest entry with cosine >= 0.995."""
+    import numpy as np
+
+    from multimodal_registration_torch.models.weights import grads_to_jax
+    from multimodal_registration_torch.train.trainer import loss_from_batch
+
+    sides = {}
+    for impl in (None, "plain"):
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss, _ = loss_from_batch(trainer.model, batch, trainer.engine_cfg, trainer.cfg, False,
+                                  impl)
+        loss.backward()
+        sides[impl] = (float(loss.detach()), grads_to_jax(trainer.model))
+    (lk, gk), (lp, gp) = sides[None], sides["plain"]
+    # both sides run the same cuDNN convs; they differ where K5 sums the
+    # bf16 integration's cotangents in float32 (the plain version scatters in
+    # bf16), and where cuDNN's backward picks another summation order
+    print(f"#   {label}: loss kernels {lk:.6f}, plain {lp:.6f} (tolerance 1e-3)")
+    check(abs(lk - lp) <= 1e-3, f"{label}: loss through the kernels disagrees with the plain path")
+    worst = 0.0
+    for name, ref in gp.items():
+        rel = float(np.abs(gk[name] - ref).max() / max(np.abs(ref).max(), 1e-30))
+        cos = float((gk[name] * ref).sum()
+                    / max(np.linalg.norm(gk[name]) * np.linalg.norm(ref), 1e-30))
+        worst = max(worst, rel)
+        check(np.isfinite(gk[name]).all() and np.abs(ref).max() > 0,
+              f"{label}: gradient of {name} is not finite or zero")
+        check(rel <= 0.1 and cos >= 0.995,
+              f"{label}: gradient of {name}: kernels vs plain max diff {rel:.3e} of max, cosine {cos:.5f}")
+    print(f"#   {label}: {len(gp)} parameter gradients, worst max-diff {worst:.3e} of the "
+          "leaf's max (tolerance 0.1, cosine >= 0.995)", flush=True)
+
+
 def training_phase(dev, shape, timer, rehearsal, tmp):
     """Phase 5: the flagship model's training at full width. Returns
     ``(launches of the run_training run, numbers to print)``."""
@@ -620,11 +668,9 @@ def training_phase(dev, shape, timer, rehearsal, tmp):
     import torch
 
     from multimodal_registration_torch import kernels
-    from multimodal_registration_torch.models.weights import grads_to_jax
     from multimodal_registration_torch.train.cli import run_training
     from multimodal_registration_torch.train.config import TrainConfig
-    from multimodal_registration_torch.train.trainer import (
-        Trainer, loss_from_batch, synthesize)
+    from multimodal_registration_torch.train.trainer import Trainer, synthesize
 
     width = 64 if not rehearsal else 8
     base = dict(in_shape=list(shape), num_labels=26 if not rehearsal else 6, num_maps=4,
@@ -645,31 +691,8 @@ def training_phase(dev, shape, timer, rehearsal, tmp):
     maps = coarse.repeat_interleave(8, 1).repeat_interleave(8, 2).repeat_interleave(8, 3)
     maps = maps[:, :shape[0], :shape[1], :shape[2]].contiguous()
     batch = synthesize(trainer.generator(2), maps[:1], maps[1:], trainer.engine_cfg, cfg, False)
-    sides = {}
-    for impl in (None, "plain"):
-        trainer.optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_from_batch(trainer.model, batch, trainer.engine_cfg, cfg, False, impl)
-        loss.backward()
-        sides[impl] = (float(loss.detach()), grads_to_jax(trainer.model))
-    (lk, gk), (lp, gp) = sides[None], sides["plain"]
-    # both sides run the same cuDNN convs; they differ where K5 sums the
-    # bf16 integration's cotangents in float32 (the plain version scatters in
-    # bf16), and where cuDNN's backward picks another summation order
-    print(f"#   fixed batch: loss kernels {lk:.6f}, plain {lp:.6f} (tolerance 1e-3)")
-    check(abs(lk - lp) <= 1e-3, "loss through the kernels disagrees with the plain path")
-    worst = 0.0
-    for name, ref in gp.items():
-        rel = float(np.abs(gk[name] - ref).max() / max(np.abs(ref).max(), 1e-30))
-        cos = float((gk[name] * ref).sum()
-                    / max(np.linalg.norm(gk[name]) * np.linalg.norm(ref), 1e-30))
-        worst = max(worst, rel)
-        check(np.isfinite(gk[name]).all() and np.abs(ref).max() > 0,
-              f"gradient of {name} is not finite or zero")
-        check(rel <= 0.1 and cos >= 0.995,
-              f"gradient of {name}: kernels vs plain max diff {rel:.3e} of max, cosine {cos:.5f}")
-    print(f"#   fixed batch: {len(gp)} parameter gradients, worst max-diff {worst:.3e} of the "
-          "leaf's max (tolerance 0.1, cosine >= 0.995)", flush=True)
-    del trainer, batch, sides, gk, gp
+    fixed_batch_check("fixed batch", trainer, batch)
+    del trainer, batch
 
     # -- run_training, the entry point a user calls: 4 steps, tie "equal"
     kernels.reset_launch_counts()
@@ -1751,6 +1774,188 @@ def pipeline_phase(dev, rehearsal, tmp):
     return counts, numbers
 
 
+PHASE9_BUDGET_S = 180  # of the script's 1200 s
+LEARN_STEPS = 3000  # 9a: the svf4 probe's count (benchmarks/svf4_learn_results.json)
+WARM_STEPS = 300    # 9b
+# a training step's kernels in a profiler trace, by their CUDA function names
+TRACE_NAMES = {
+    "warp_trilinear": ("self_warp_add_kernel", "warp_kernel"),
+    "max_pool_2x_bwd": ("pool_bwd_kernel",),
+    "warp_trilinear_bwd": ("self_warp_add_bwd_kernel", "warp_bwd_tiled_kernel",
+                           "warp_bwd_kernel"),
+    "warp_labels_soft_hard": ("warp_labels_kernel",),
+    "warp_labels_bwd": ("warp_labels_bwd_kernel",),
+}
+
+
+def trace_kernel_names(path):
+    """The names of the device kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events if str(e.get("cat", "")).lower() == "kernel"}
+
+
+def learning_phase(dev, rehearsal, tmp):
+    """Phase 9: the port's training learns at full width. 9a trains the
+    flagship model from scratch (96^3, 16 labels, 3000 steps) and holds it
+    against the identity on held-out pairs; 9b warm-starts from the in-repo
+    ``learned_ref`` checkpoint (160x160x192, 26 labels, 300 steps); 9c traces
+    three of 9a's training steps with ``device_trace``. Returns the launch
+    counts of each and the phase's numbers."""
+    import glob
+    import re
+
+    import numpy as np
+
+    import torch
+
+    from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.tools import learn_check as lc
+    from multimodal_registration_torch.train.trainer import Trainer, synthesize
+    from multimodal_registration_torch.utils.profiling import device_trace
+
+    t_phase = time.perf_counter()
+    counts, numbers = {}, {}
+    snapshot = {p: os.path.getmtime(p) for p in glob.glob(os.path.join(HERE, "benchmarks", "*"))}
+    with open(os.path.join(HERE, "benchmarks", "svf4_learn_results.json")) as f:
+        jax_ref = json.load(f)
+    path_kernels = tuple(k.name for k in kernels.KERNELS if k.name != "conv3_int8")
+
+    def show(label, res):
+        for p in res["trajectory"]:
+            print(f"#   {label} step {p['step']}: loss {p['loss']}, Dice {p['dice']:.4f}, "
+                  f"NMI {p['nmi']:.4f}, mean |flow| {p['mean_abs_flow_vox']:.4f} voxel, "
+                  f"{p['sec_per_step']:.4f} s/step", flush=True)
+        s = res["step_seconds"]
+        print(f"#   {label}: identity Dice {res['dice_identity']:.4f}, NMI {res['nmi_identity']:.4f}; "
+              f"loss mean of the first {res['loss_window']} steps {res['loss_first_mean']}, "
+              f"of the last {res['loss_last_mean']}; s/step p50 {s.get('p50')}, p90 {s.get('p90')} "
+              f"(StepTimer, synchronised); learned: {str(res['learned']).lower()}", flush=True)
+
+    # ---- 9a. from scratch, flagship widths, 96^3, 16 labels
+    shape_a, labels_a, steps_a = ((16, 16, 16), 4, 4) if rehearsal else ((96, 96, 96), 16,
+                                                                       LEARN_STEPS)
+    print(f"# phase 9a: learn_check from scratch, {shape_a}, {labels_a} labels, {steps_a} steps",
+          flush=True)
+    t0 = time.perf_counter()
+    # the kernels against their plain versions at 9a's shapes (labels-innermost
+    # width 16 for K6/K7) before training: phase 5's fixed-batch check on a
+    # trainer of 9a's configuration and a pair synthesised from its first map
+    cfg_a = lc.check_config(shape_a, labels_a)
+    check_trainer = Trainer(cfg_a, device=dev)
+    with torch.no_grad():  # a flow head far from zero, so that every branch carries signal
+        check_trainer.model.flow.weight.mul_(2000.0)
+    map0 = torch.as_tensor(lc.map_bank(cfg_a, dev, num_maps=1)[0], device=dev)[None]
+    batch = synthesize(check_trainer.generator(2), map0, map0, check_trainer.engine_cfg, cfg_a,
+                       False)
+    fixed_batch_check("9a fixed batch", check_trainer, batch)
+    del check_trainer, batch, map0
+    t_check = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    res_a, trainer, bank = lc.learn_check(steps_a, shape_a, labels_a, device=dev)
+    counts["9a"] = kernels.launch_counts()
+    numbers["9a"] = dict(res_a, wall_s=time.perf_counter() - t0)
+    show("9a", res_a)
+    for arm, traj in jax_ref["arms"].items():
+        last = traj[-1]
+        print(f"#   9a reference, the JAX package's svf4 probe, svf_int_res {arm}, "
+              f"{jax_ref['workload']}: at step {last['step']} Dice {last['dice']} "
+              f"({last['dice'] - jax_ref['identity']['dice']:+.4f} on its identity "
+              f"{jax_ref['identity']['dice']}), NMI {last['nmi']} "
+              f"({last['nmi'] - jax_ref['identity']['nmi']:+.4f}); other pairs, no gate on the gain")
+    print(f"#   9a: launches {counts['9a']}; {numbers['9a']['wall_s']:.1f} s, of which the "
+          f"fixed-batch check {t_check:.1f} s", flush=True)
+    # the trained model's evaluation forward through the kernels against their
+    # plain versions, on 9a's held-out pairs (remade from its bank and seed):
+    # phase 3's limits on one pair's forward, and Dice and NMI of all three
+    pairs = lc.held_out_pairs(list(bank), trainer.engine_cfg, trainer.generator(lc.SEED_PAIRS),
+                              dev)
+    mov, _, fx, _ = pairs[0]
+    with torch.inference_mode():
+        out_k = trainer.model(mov[None, ..., None], fx[None, ..., None])
+        out_p = trainer.model(mov[None, ..., None], fx[None, ..., None], impl="plain")
+    d_warp = float((out_k["warp"] - out_p["warp"]).abs().max())
+    d_moved = float((out_k["moved"] - out_p["moved"]).abs().max())
+    ev_k = lc.evaluate(trainer.model, pairs, labels_a)
+    ev_p = lc.evaluate(trainer.model, pairs, labels_a, impl="plain")
+    d_dice, d_nmi = abs(ev_k["dice"] - ev_p["dice"]), abs(ev_k["nmi"] - ev_p["nmi"])
+    print(f"#   9a trained forward, kernels vs plain: warp max_abs_diff {d_warp:.3e} voxel "
+          f"(tol 0.1), moved {d_moved:.3e} (tol 0.05); held-out Dice {ev_k['dice']:.4f} vs "
+          f"{ev_p['dice']:.4f}, NMI {ev_k['nmi']:.4f} vs {ev_p['nmi']:.4f} (tol 0.01 each); "
+          f"the trajectory's last Dice {res_a['dice_after']:.4f}", flush=True)
+    numbers["9a"].update(d_warp=d_warp, d_moved=d_moved, d_dice=d_dice, d_nmi=d_nmi)
+    check(d_warp <= 0.1 and d_moved <= 0.05,
+          "9a: the trained forward through the kernels disagrees with the plain forward")
+    check(d_dice <= 0.01 and d_nmi <= 0.01,
+          f"9a: held-out Dice/NMI through the kernels disagree with the plain path: {ev_k} {ev_p}")
+    del pairs, mov, fx, out_k, out_p
+    if not rehearsal:
+        check(all(counts["9a"][k] >= 1 for k in path_kernels),
+              f"9a: a kernel of the training and evaluation path was not launched: {counts['9a']}")
+        check(res_a["learned"], "9a: the model did not learn: held-out Dice or NMI not above "
+              f"the identity's: {res_a['trajectory'][-1]}")
+        check(res_a["loss_last_mean"] < res_a["loss_first_mean"],
+              f"9a: the loss did not fall: {res_a['loss_first_mean']} -> {res_a['loss_last_mean']}")
+
+    # ---- 9b. warm start from the in-repo checkpoint at the reference workload
+    shape_b, steps_b = ((16, 16, 16), 2) if rehearsal else ((160, 160, 192), WARM_STEPS)
+    print(f"# phase 9b: learn_check warm from {os.path.basename(CKPT)}, {shape_b}, 26 labels, "
+          f"{steps_b} steps", flush=True)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    res_b, trainer_b, _ = lc.learn_check(steps_b, shape_b, 26, warm=CKPT, device=dev)
+    counts["9b"] = kernels.launch_counts()
+    numbers["9b"] = dict(res_b, wall_s=time.perf_counter() - t0)
+    del trainer_b
+    show("9b", res_b)
+    first, last = res_b["trajectory"][0], res_b["trajectory"][-1]
+    print(f"#   9b reference, the JAX package's record (benchmarks/learn_ref_results.json, other "
+          "pairs): step 0 Dice 0.9046 against 0.8112 for the identity, NMI 1.0287 against 1.0215")
+    print(f"#   9b: launches {counts['9b']}; {numbers['9b']['wall_s']:.1f} s", flush=True)
+    if not rehearsal:
+        check(all(counts["9b"][k] >= 1 for k in path_kernels),
+              f"9b: a kernel of the training and evaluation path was not launched: {counts['9b']}")
+        check(first["step"] == 0 and first["dice"] > res_b["dice_identity"]
+              and first["nmi"] > res_b["nmi_identity"],
+              f"9b: the learned checkpoint does not beat the identity at step 0: {first}")
+        check(last["dice"] >= first["dice"] - 0.01,
+              f"9b: Dice fell by more than 0.01 in {steps_b} steps: {first['dice']} -> "
+              f"{last['dice']}")
+    after = {p: os.path.getmtime(p) for p in glob.glob(os.path.join(HERE, "benchmarks", "*"))}
+    check(after == snapshot, "phase 9 changed something under benchmarks/")
+
+    # ---- 9c. device_trace around three of 9a's training steps
+    print("# phase 9c: device_trace around three training steps of 9a's trainer", flush=True)
+    gen = trainer.generator(7)
+    si, ti = trainer.put_indices(np.array([0]), np.array([0]))
+    trainer.train_step_banked(gen, bank, si, ti)
+    kernels.reset_launch_counts()
+    with device_trace(os.path.join(tmp, "trace")) as trace_path:
+        for _ in range(3):
+            trainer.train_step_banked(gen, bank, si, ti)
+    counts["9c"] = kernels.launch_counts()
+    per_step = {k: v / 3 for k, v in counts["9c"].items()}
+    check(os.path.exists(trace_path), f"9c: no trace at {trace_path}")
+    names = trace_kernel_names(trace_path)
+    found = {k: sorted({s for s in subs for n in names
+                        if re.search(rf"(?<![A-Za-z0-9_]){s}(?![A-Za-z0-9_])", n)})
+             for k, subs in TRACE_NAMES.items()}
+    numbers["9c"] = {"trace_mb": os.path.getsize(trace_path) / 1e6, "kernel_names": len(names),
+                     "per_step": per_step, "found": found}
+    print(f"#   9c: {trace_path} ({numbers['9c']['trace_mb']:.1f} MB, {len(names)} kernel names); "
+          f"launches per step {per_step}; kernels named in the trace {found}", flush=True)
+    if not rehearsal:
+        check(per_step == {k: float(v) for k, v in TRAIN_WANT.items()},
+              f"9c: a step launched {per_step}, want {TRAIN_WANT}")
+        check(all(found.values()), f"9c: the trace does not name every training kernel: {found}")
+    del trainer, bank
+
+    numbers["total_s"] = time.perf_counter() - t_phase
+    print(f"#   phase 9: {numbers['total_s']:.1f} s of its budget of {PHASE9_BUDGET_S} s",
+          flush=True)
+    return counts, numbers
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -2067,6 +2272,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as td:
         pipe_launches, pipe_numbers = pipeline_phase(dev, rehearsal, td)
     print(f"#   phase 8 numbers: {json.dumps(pipe_numbers)}")
+
+    # ---- 9. the port's training learns at full width ----------------------------
+    clear_scratch()
+    with tempfile.TemporaryDirectory() as td:
+        learn_launches, learn_numbers = learning_phase(dev, rehearsal, td)
     # K8's row: its widest call, dec_3 (512 -> 256 at 80x80x96); every shape in "shapes"
     timing["conv3_int8"] = dict(next(r for r in k8_rows if r["label"] == "dec_3"))
     timing["conv3_int8"]["shapes"] = [
@@ -2075,7 +2285,7 @@ def main() -> None:
                            "device_ops", "plain_ms", "library_ms", "library_device_ms")}
         | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]} for r in k8_rows]
 
-    # ---- 9. report -----------------------------------------------------------
+    # ---- 10. report ----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
     # before it: register() for K1-K3, run_training() for K4-K7, register()
     # with the published config in int8 (7d) for K8
@@ -2094,6 +2304,7 @@ def main() -> None:
             **{f"launches_{phase}": n[k.name] for phase, n in scan_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in w256_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in pipe_launches.items()},
+            **{f"launches_{phase}": n[k.name] for phase, n in learn_launches.items()},
             "max_abs_err": results[k.name]["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
@@ -2121,7 +2332,10 @@ def main() -> None:
           f"phase7_s {w256_numbers['total_s']:.1f} "
           f"pipeline_s_per_subject {pipe_numbers['8a']['s_per_subject']:.3f} "
           f"sync_s_per_subject {pipe_numbers['8b']['s_per_subject']:.3f} "
-          f"phase8_s {pipe_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
+          f"phase8_s {pipe_numbers['total_s']:.1f} "
+          f"learn_s_per_step_p50 {learn_numbers['9a']['step_seconds']['p50']:.4f} "
+          f"learned {str(learn_numbers['9a']['learned']).lower()} "
+          f"phase9_s {learn_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

@@ -145,10 +145,11 @@ def eval_with_mi(argv=None) -> int:
 def eval_with_jacobian_arrays(field, affine, sub_id, out_file, out_im_path, append=True,
                               device=None) -> dict:
     """Array-level core; returns the folding summary (without the
-    determinant volume, which is written to ``out_im_path`` in float32)."""
+    determinant volume, which is written to ``out_im_path`` in
+    :func:`nifti.output_dtype`: float32, or float64 under ``MMREG_F64_OUTPUTS``)."""
     summary = folding_summary(field, device)
     det = summary.pop("det")
-    nifti.save(nifti.NiftiImage(det[..., None].astype(np.float32), affine), out_im_path)
+    nifti.save(nifti.NiftiImage(det[..., None].astype(nifti.output_dtype()), affine), out_im_path)
 
     header = [
         "Timestamp", "Subject", "Percentage_negative_detJa[%]", "Median_detJa",

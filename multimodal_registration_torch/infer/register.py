@@ -225,7 +225,7 @@ def postprocess_and_save(warp_data: np.ndarray, scale: int, fixed_proc: nifti.Ni
     _mk("postprocess.resample_orig")
 
     if "moved_orig" in paths:
-        nifti.save(nifti.NiftiImage(moved_orig.astype(np.float32), moving_nii.affine),
+        nifti.save(nifti.NiftiImage(moved_orig.astype(nifti.output_dtype()), moving_nii.affine),
                    paths["moved_orig"])
     _mk("postprocess.save_moved_orig")
 

@@ -8,6 +8,9 @@ shape ``(3, 3, 3, Cin, Cout)``, ``params/unet/enc_0/conv/bias``,
 port's module tree has the same names: ``unet.enc_0.conv.weight`` of shape
 ``(Cout, Cin, 3, 3, 3)``, ``flow.weight``, ...
 
+Keras VoxelMorph ``.h5`` files go both ways too: ``models/h5_import.py``
+reads one into a state dict, ``models/h5_export.py`` writes one from it.
+
 The int8 activation scales are the JAX package's ``"quant"`` collection, a
 nested dict ``{"unet": {"enc_1": {"amax": scalar}}}``; the port keeps them
 flat, ``{"unet/enc_1/amax": numpy float32}`` (:func:`quant_from_jax`,

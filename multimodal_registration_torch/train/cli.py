@@ -11,6 +11,7 @@ checkpoint, fit with per-epoch ``metrics.csv`` rows and checkpoints, save
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import os
 import time
@@ -25,6 +26,22 @@ from multimodal_registration_torch.train.config import TrainConfig
 from multimodal_registration_torch.train.trainer import Trainer
 from multimodal_registration_torch.utils import io as vio
 from multimodal_registration_torch.utils import nifti
+
+
+def _tensorboard_writer(log_dir):
+    """A context that yields a ``SummaryWriter`` on ``log_dir`` when
+    ``MMREG_TENSORBOARD=1`` and a log directory is set, else ``None``.
+    Without the ``tensorboard`` package the scalars are left out with one
+    warning line; the run goes on."""
+    if not log_dir or os.environ.get("MMREG_TENSORBOARD") != "1":
+        return contextlib.nullcontext()
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        print(f"warning: MMREG_TENSORBOARD=1 but TensorBoard is unavailable ({e}); "
+              "no scalars are written", flush=True)
+        return contextlib.nullcontext()
+    return SummaryWriter(log_dir)
 
 
 def run_training(cfg: TrainConfig, max_steps: int | None = None, device=None,
@@ -120,7 +137,8 @@ def run_training(cfg: TrainConfig, max_steps: int | None = None, device=None,
     new_file = not os.path.exists(metrics_path)
     history, step_seconds = [], []
     total_steps = 0
-    with open(metrics_path, "a", newline="") as metrics_f:
+    with open(metrics_path, "a", newline="") as metrics_f, \
+            _tensorboard_writer(log_dir) as tb_writer:
         writer = csv.writer(metrics_f)
         if new_file:
             writer.writerow(["epoch", "loss", "dice_loss", "grad_loss", "val_loss",
@@ -147,7 +165,10 @@ def run_training(cfg: TrainConfig, max_steps: int | None = None, device=None,
                 s_idx = idx[: cfg.batch_size_val]
                 t_idx = s_idx if cfg.same_subj else idx[cfg.batch_size_val:]
                 si, ti = trainer.put_indices(s_idx, t_idx)
-                val_losses.append(float(trainer.val_step_banked(gen, bank_val, si, ti)["loss"]))
+                # the row's dice_loss and grad_loss then come from the last
+                # validation step, as in the JAX package (fault F10)
+                aux = trainer.val_step_banked(gen, bank_val, si, ti)
+                val_losses.append(float(aux["loss"]))
 
             sec_per_step = (time.time() - t0) / max(len(ep_losses), 1)
             row = dict(
@@ -161,6 +182,10 @@ def run_training(cfg: TrainConfig, max_steps: int | None = None, device=None,
             history.append(row)
             writer.writerow(list(row.values()))
             metrics_f.flush()
+            if tb_writer is not None:
+                for k in ("loss", "dice_loss", "grad_loss", "val_loss"):
+                    tb_writer.add_scalar(k, row[k], global_step=epoch + 1)
+                tb_writer.flush()
             if cfg.verbose:
                 print(f"epoch {epoch + 1}/{cfg.epochs} loss={row['loss']:.4f} "
                       f"val={row['val_loss']:.4f} ({sec_per_step:.2f}s/step)", flush=True)

@@ -263,6 +263,14 @@ _LOAD_CACHE_MAX = 8
 _LOAD_CACHE_ACTIVE = False
 
 
+def output_dtype():
+    """The type of the exported volumes (the moved image on the moving grid,
+    the Jacobian determinant): float32, which halves their gzip payload;
+    ``MMREG_F64_OUTPUTS`` set to a non-empty value writes the reference's
+    float64 instead, as the JAX package does."""
+    return np.float64 if os.environ.get("MMREG_F64_OUTPUTS") else np.float32
+
+
 def enable_save_prime() -> None:
     """Let ``save`` prime the decoded-file cache (the pipeline calls this; the
     first ``load(cached=True)`` does too)."""
