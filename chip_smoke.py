@@ -84,7 +84,26 @@ Phases (any failure exits non-zero):
          changes;
      9c. ``device_trace`` around three of 9a's training steps: the trace
          names the kernels of K2, K4, K5, K6 and K7, and the launches per step;
- 10. the report, and the card's name and power limit.
+ 10. multi-GPU (item 15), budget 120 s, on a mesh of distinct cards where
+     there are enough and of ``cuda:0`` repeated otherwise (the slabs and
+     replicas are split and their halos copied all the same; one card shows
+     the sharding's overhead, not a speed-up):
+     10a. the flagship forward through ``ShardedRegistrar`` ``{space: 2}``
+          against the single-device ``Registrar`` (the F2 rule), launches
+          per forward (K1 x2, K2 x5, K3), ms, peak memory, the device time of
+          the sharding;
+     10b. ``{data: 2}`` on a batch of 3 (padded) and ``{data: 2, space: 2}``
+          on a batch of 2;
+     10c. the published widths in int8 with the in-repo sidecar, ``{space:
+          2}`` (K8 on 9 convs of 2 slabs), and the lazy calibration over
+          slabs against one device's;
+     10d. ``pair_registration`` and ``bids_two_steps`` through their argv with
+          ``--space 2`` against the same without it; ``make_registrar``
+          refuses more devices than there are;
+     10e. data-parallel training at full width (26 labels, batch 2, ``{data:
+          2}``): a step against the 1-device step, then ``run_training`` with
+          ``num_devices`` 2 for 2 steps;
+ 11. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -1956,6 +1975,497 @@ def learning_phase(dev, rehearsal, tmp):
     return counts, numbers
 
 
+PHASE10_BUDGET_S = 120  # of the script's 1200 s
+# a data-parallel step of 2 replicas at batch 2: each replica runs what a
+# step at batch 1 runs (TRAIN_WANT)
+DP_STEP_WANT = {k: 2 * v for k, v in TRAIN_WANT.items()}
+
+
+def mesh_devices_of(dev, n):
+    """``n`` mesh devices: distinct cards while there are enough, then
+    repeats (``cuda:0`` twice on a one-card machine); the CPU ``n`` times in
+    the rehearsal."""
+    import torch
+
+    if dev.type == "cpu":
+        return [dev] * n
+    return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(n)]
+
+
+def f2_rule(label, got, want, field_max):
+    """The F2 rule of ``tests/_torch_port.py::assert_same_outputs`` on a
+    registrar's outputs: ``("warp", ...)`` within 1 bf16 ulp of the largest
+    int-res field, ``("moved", ...)`` within that ulp of the full-res field
+    (twice the int-res one) or 1e-3. Where the limit comes from: cuDNN may
+    sum a bf16 conv in another order for another shape (a slab, a batch
+    size), which flips the roundings of bf16 activations all through the
+    network; a flipped bf16 payload of the integration's last step moves a
+    field value by its weight (< 1) times one ulp of the payload, and the
+    largest payloads lie in the binade of the field's maximum. The limit is
+    reached from below (PERF.md section 5 has the measured values). A
+    second requirement holds the flips to what is rare: at most 1e-3 of the
+    field's values beyond half that ulp (a halo fault moves whole planes,
+    one of them 1.25e-2 of the int-res field at 160x160x192).
+    Returns the errors and the counts."""
+    errs = {}
+    for name, tol in (("warp", bf16_ulp(field_max)), ("moved", max(bf16_ulp(2 * field_max), 1e-3))):
+        d = (got[name].float() - want[name].float()).abs()
+        errs[name] = float(d.max())
+        print(f"#   {label}: {name} max_abs_diff {errs[name]:.3e} (tolerance {tol:.3e}) = "
+              f"{errs[name] / bf16_ulp(field_max):.3f} ulp of the field")
+        check(errs[name] <= tol, f"{label}: the sharded {name} disagrees with one device")
+        if name == "warp":
+            flips = int((d > tol / 2).sum())
+            errs.update(warp_ulps=errs[name] / tol, warp_flips=flips, warp_values=d.numel(),
+                        warp_over_1e5=float((d > 1e-5).float().mean()))
+            print(f"#   {label}: warp values beyond half an ulp {flips} of {d.numel()} (at most "
+                  f"1e-3 of them), beyond 1e-5 a share of {errs['warp_over_1e5']:.4f}")
+            check(flips <= 1e-3 * d.numel(), f"{label}: {flips} warp values beyond half an ulp")
+    return errs
+
+
+def kernel_vs_plain(label, got, plain):
+    """Phase 3's limits for a forward through the kernels against the same
+    forward through their plain versions: warp within 0.1 voxel, moved
+    within 0.05 (K1's float32 sums round to the other bf16 neighbour than
+    cuDNN's in places, and those flips run through the bf16 network)."""
+    d_warp = float((got["warp"] - plain["warp"]).abs().max())
+    d_moved = float((got["moved"] - plain["moved"]).abs().max())
+    print(f"#   {label}: kernels vs plain on the same mesh: warp {d_warp:.3e} voxel (tol 0.1), "
+          f"moved {d_moved:.3e} (tol 0.05)")
+    check(d_warp <= 0.1 and d_moved <= 0.05, f"{label}: the kernel forward disagrees with the plain one")
+    return {"plain_warp": d_warp, "plain_moved": d_moved}
+
+
+def k1_slab_check(label, reg, mov, fx):
+    """K1 on the halo'd slabs that ``reg``'s first data row gives enc_0 for
+    ``mov``, ``fx`` ``(B, X, Y, Z)``, against its plain version: phase 2's
+    tolerance, 1 bf16 ulp of max|out|. Returns the largest error."""
+    import torch
+
+    from multimodal_registration_torch.ops.conv_pool import conv3_lrelu_pool
+    from multimodal_registration_torch.parallel.mesh import split_rows, split_slabs
+    from multimodal_registration_torch.parallel.spatial import with_halo
+
+    data = reg.mesh.shape["data"]
+    devs = list(reg.mesh.devices[0])
+    pad = (-mov.shape[0]) % data
+    x = torch.stack([mov, fx], -1)
+    x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]) if pad else x
+    errs = []
+    with torch.inference_mode():
+        for k, slab in enumerate(with_halo(split_slabs(split_rows(x, reg.mesh)[0].bfloat16(), devs), 2)):
+            block = reg.models[devs[k]].unet.enc_0
+            w, b = block.conv.weight, block.conv.bias
+            p = conv3_lrelu_pool(slab, w, b, 0.2, impl="plain")
+            errs.append(compare(f"{label}: K1 on slab {k} {tuple(slab.shape)} (tol 1 bf16 ulp of "
+                                f"max|out|)", conv3_lrelu_pool(slab, w, b, 0.2), p,
+                                bf16_ulp(float(p.float().abs().max()))))
+    return max(errs)
+
+
+def same_output_files(label, d_single, d_sharded):
+    """The same NIfTI files in both trees, fields within 1 bf16 ulp of the
+    largest field and moved images within that or 1e-3 (the F2 rule), the
+    rest within 1e-5. Returns the largest differences."""
+    import numpy as np
+
+    from multimodal_registration_torch.utils import nifti
+
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d)
+                      for f in fs if f.endswith(".nii.gz"))
+
+    names = files(d_single)
+    check(names == files(d_sharded), f"{label}: other files {names} vs {files(d_sharded)}")
+    data = {n: [nifti.load(os.path.join(d, n)).get_fdata() for d in (d_single, d_sharded)]
+            for n in names}
+    is_field = {n: "field" in n or "warp" in n for n in names}
+    field_tol = bf16_ulp(max(float(np.abs(a).max()) for n, (a, _) in data.items() if is_field[n]))
+    errs = {}
+    for n, (a, b) in data.items():
+        tol = field_tol if is_field[n] else max(field_tol, 1e-3) if "reg" in n else 1e-5
+        errs[n] = float(np.abs(a - b).max())
+        check(a.shape == b.shape and errs[n] <= tol,
+              f"{label}: {n} differs by {errs[n]:.3e} (tolerance {tol:.3e})")
+    print(f"#   {label}: {len(names)} NIfTI files, sharded against one device: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (field tolerance {field_tol:.3e})")
+    return errs
+
+
+def multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
+    """Phase 10: multi-GPU (item 15) on the mesh's devices: distinct cards
+    where there are enough, ``cuda:0`` repeated otherwise. 10a the flagship
+    forward through ``ShardedRegistrar`` ``{space: 2}`` against the
+    single-device ``Registrar``; 10b ``{data: 2}`` on a batch of 3 and
+    ``{data: 2, space: 2}`` on a batch of 2, then each layout on more
+    inputs and the single device at batch 2 against batch 1; 10c the
+    published widths in int8 ``{space: 2}`` with the in-repo sidecar, and
+    the lazy calibration over slabs against one device's; 10d
+    ``pair_registration`` and ``bids_two_steps`` through their argv with
+    ``--space 2`` against the same without it, and ``make_registrar``
+    refusing more devices than there are; 10e data-parallel training at
+    full width. In 10a-10c the sharded forward through the kernels is also
+    held against the same mesh through their plain versions, and K1 and K8
+    against theirs on the slab shapes. With ``cuda:0`` repeated, 10e's two
+    replicas are one model (``replicate`` keeps one copy a device): their
+    backwards sum into its gradients, and the copy-and-sum of distinct
+    devices runs only in the CPU tests (``cpu`` and ``cpu:0``). Returns the
+    launch counts of each and the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.infer.cli import bids_two_steps, pair_registration
+    from multimodal_registration_torch.infer.config import InferenceConfig
+    from multimodal_registration_torch.infer.register import Registrar, load_params_any
+    from multimodal_registration_torch.infer.sharded import ShardedRegistrar, make_registrar
+    from multimodal_registration_torch.models.quantize import load_scales
+    from multimodal_registration_torch.parallel.mesh import make_mesh
+    from multimodal_registration_torch.train.cli import run_training
+    from multimodal_registration_torch.train.config import TrainConfig
+    from multimodal_registration_torch.train.trainer import Trainer
+    from multimodal_registration_torch.utils import nifti
+
+    t_phase = time.perf_counter()
+    counts, numbers = {}, {}
+    cuda = dev.type == "cuda"
+    shape = tuple(fx_np.shape)
+
+    def mesh(data, space):
+        return make_mesh(data * space, space=space, devices=mesh_devices_of(dev, data * space))
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_mib():
+        return torch.cuda.max_memory_allocated() / 2**20 if cuda else float("nan")
+
+    def predicted(reg, mov, fx):
+        moved, warp = reg.predict_tensors(mov, fx)
+        return {"moved": moved, "warp": warp}
+
+    cfg = InferenceConfig.from_dict(dict(FLAGSHIP))
+    params = load_params_any(CKPT, cfg)
+    mov1 = torch.as_tensor(mov_np, device=dev)[None]
+    fx1 = torch.as_tensor(fx_np, device=dev)[None]
+    single = Registrar(cfg, params, device=dev)
+
+    # ---- 10a. the flagship forward over {space: 2}
+    m2 = mesh(1, 2)
+    print(f"# phase 10a: the flagship forward through ShardedRegistrar {{space: 2}} on {m2}, "
+          f"against Registrar on {dev}, {shape}", flush=True)
+    sharded = ShardedRegistrar(cfg, params, m2)
+    want = predicted(single, mov1, fx1)
+    kernels.reset_launch_counts()
+    got = predicted(sharded, mov1, fx1)
+    counts["10a"] = kernels.launch_counts()
+    print(f"#   10a: launches per sharded forward {counts['10a']}")
+    if not rehearsal:
+        expect = dict.fromkeys(counts["10a"], 0)
+        expect.update({"conv3_lrelu_pool": 2, "warp_trilinear": 5, "warp_up2x": 1})
+        check(counts["10a"] == expect, f"10a: launched {counts['10a']}, want K1 x2, K2 x5, K3 x1")
+    field_max = float(want["warp"].abs().max())
+    numbers["10a"] = f2_rule("10a", got, want, field_max)
+    numbers["10a"]["max_abs_warp"] = field_max
+    numbers["10a"].update(kernel_vs_plain(
+        "10a", got, predicted(ShardedRegistrar(cfg, params, m2, impl="plain"), mov1, fx1)))
+    numbers["10a"]["k1_slab_err"] = k1_slab_check("10a", sharded, mov1, fx1)
+    for label, reg in (("sharded", sharded), ("single", single)):
+        peak_reset()
+        numbers["10a"][f"{label}_ms"] = timer(lambda: reg.predict_tensors(mov1, fx1), n=1, reps=8,
+                                               warmup=2)
+        numbers["10a"][f"{label}_peak_mib"] = peak_mib()
+    if not rehearsal:
+        for label, reg in (("sharded", sharded), ("single", single)):
+            ms, ops, rows = device_time(lambda: reg.predict_tensors(mov1, fx1),
+                                        f"10a {label} forward")
+            copies = sum(r[0] for r in rows if "Cat" in r[2] or "Memcpy" in r[2]
+                         or "copy" in r[2].lower())
+            numbers["10a"].update({f"{label}_device_ms": ms, f"{label}_device_ops": ops,
+                                   f"{label}_copy_device_ms": copies})
+        numbers["10a"]["sharding_device_ms"] = (numbers["10a"]["sharded_device_ms"]
+                                                - numbers["10a"]["single_device_ms"])
+    a = numbers["10a"]
+    print(f"#   10a: sharded {a['sharded_ms']:.3f} ms per forward, peak "
+          f"{a['sharded_peak_mib']:.1f} MiB; one device {a['single_ms']:.3f} ms, peak {a['single_peak_mib']:.1f} MiB "
+          f"({'CUDA events' if cuda else 'host clock, CPU'}); device time of the sharding "
+          f"(sharded - single) {a.get('sharding_device_ms', 'not measured')} ms, of the "
+          f"concatenations and copies {a.get('sharded_copy_device_ms', 'not measured')} ms "
+          f"against {a.get('single_copy_device_ms', 'not measured')} ms", flush=True)
+    del sharded, got
+
+    # ---- 10b. {data: 2} on a batch of 3 (padding), {data: 2, space: 2} on 2
+    rng = np.random.default_rng(10)
+    movs = torch.stack([mov1[0]] + [torch.as_tensor(
+        np.roll(mov_np, s, 0) + 0.02 * rng.random(shape).astype(np.float32), device=dev)
+        for s in (2, -3) * 3])
+    fxs = fx1.expand(len(movs), -1, -1, -1).contiguous()
+    numbers["10b"] = {}
+    for label, (data, space), n in (("10b data 2, batch 3", (2, 1), 3),
+                                    ("10b data 2 x space 2, batch 2", (2, 2), 2)):
+        mb = mesh(data, space)
+        print(f"# phase {label} on {mb}", flush=True)
+        want = predicted(single, movs[:n], fxs[:n])
+        reg = ShardedRegistrar(cfg, params, mb)
+        kernels.reset_launch_counts()
+        got = predicted(reg, movs[:n], fxs[:n])
+        key = f"10b_{data}x{space}"
+        counts[key] = kernels.launch_counts()
+        check(tuple(got["warp"].shape) == tuple(want["warp"].shape), f"{label}: wrong shape")
+        print(f"#   {label}: launches {counts[key]}")
+        if not rehearsal:
+            rows = data  # a batch of 3 is padded to 4: two rows of 2
+            check(counts[key]["conv3_lrelu_pool"] == rows * space
+                  and counts[key]["warp_trilinear"] == 5 * rows
+                  and counts[key]["warp_up2x"] == rows, f"{label}: launched {counts[key]}")
+        numbers["10b"][key] = f2_rule(label, got, want, float(want["warp"].abs().max()))
+        numbers["10b"][key].update(kernel_vs_plain(label, got, predicted(
+            ShardedRegistrar(cfg, params, mb, impl="plain"), movs[:n], fxs[:n])))
+        numbers["10b"][key]["k1_slab_err"] = k1_slab_check(label, reg, movs[:n], fxs[:n])
+        del reg, got, want
+    # the F2 rule again on the other inputs, for each layout, and on the
+    # single device at batch 2 against batch 1: cuDNN's choice for another
+    # shape is the source of the difference, with or without sharding
+    print(f"# phase 10b repeats: each layout on the other inputs; the single device at batch 2 "
+          f"against batch 1", flush=True)
+    ulps = {}
+    for layout, (data, space), n in (("10a", (1, 2), 1), ("10b_2x1", (2, 1), 3),
+                                     ("10b_2x2", (2, 2), 2)):
+        reg = ShardedRegistrar(cfg, params, mesh(data, space))
+        for i in range(n, len(movs) - n + 1, n):
+            m, f = movs[i:i + n], fxs[i:i + n]
+            want = predicted(single, m, f)
+            errs = f2_rule(f"10b repeat, the {layout} layout on inputs {i}-{i + n - 1}",
+                           predicted(reg, m, f), want, float(want["warp"].abs().max()))
+            ulps.setdefault(layout, []).append(errs["warp_ulps"])
+        del reg, m, f  # views of the inputs would keep them for 10e's peak
+    one = [predicted(single, movs[i:i + 1], fxs[i:i + 1]) for i in range(2)]
+    want = {k: torch.cat([o[k] for o in one]) for k in ("moved", "warp")}
+    numbers["10b"]["single_batch2_vs_batch1"] = f2_rule(
+        "10b the single device at batch 2 against batch 1", predicted(single, movs[:2], fxs[:2]),
+        want, float(want["warp"].abs().max()))
+    numbers["10b"]["repeat_warp_ulps"] = ulps
+    print(f"#   10b repeats: warp difference in ulps of the field {json.dumps(ulps)}", flush=True)
+    del movs, fxs, one, want
+
+    # ---- 10c. the published widths in int8, {space: 2}
+    print(f"# phase 10c: the published widths in int8 with the in-repo sidecar, {{space: 2}} on "
+          f"{m2}, against one device; the lazy calibration over slabs", flush=True)
+    with open(os.path.join(HERE, "config", "config_inference.json")) as f:
+        cfg8 = InferenceConfig.from_dict(dict(json.load(f), quantize="int8"))
+    params8 = load_params_any(W256_CKPT, cfg8)
+    scales = load_scales(W256_SIDECAR)
+    single8 = Registrar(cfg8, params8, device=dev, quant_scales=scales)
+    want = predicted(single8, mov1, fx1)
+    sharded8 = ShardedRegistrar(cfg8, params8, m2, quant_scales=scales)
+    kernels.reset_launch_counts()
+    got = predicted(sharded8, mov1, fx1)
+    counts["10c"] = kernels.launch_counts()
+    print(f"#   10c: launches per sharded int8 forward {counts['10c']}")
+    if not rehearsal:
+        check(counts["10c"]["conv3_int8"] == 18 and counts["10c"]["conv3_lrelu_pool"] == 2,
+              f"10c: want K8 x18 (9 convs on 2 slabs), K1 x2: {counts['10c']}")
+    # the int8 convs' sums are exact; what is left is the float32 head
+    # (cuDNN on a slab's shape may sum in another order) and the bf16
+    # integration after it: the F2 rule
+    numbers["10c"] = f2_rule("10c", got, want, float(want["warp"].abs().max()))
+    numbers["10c"].update(kernel_vs_plain("10c", got, predicted(ShardedRegistrar(
+        cfg8, params8, m2, quant_scales=scales, impl="plain"), mov1, fx1)))
+    # K8 and its quantize pass at the slab shapes of the int8 convs at half
+    # resolution (X / 4 + 2 halo planes): dec_3 512 -> 256 and enc_1,
+    # final_0, final_1 256 -> 256, their sums exact
+    slab = (1, 4, 4, 4) if rehearsal else (1, shape[0] // 4 + 2, shape[1] // 2, shape[2] // 2)
+    for cin, cout in ((512, 256), (256, 256)):
+        with torch.inference_mode():
+            k8_args = k8_inputs(dev, slab, cin, cout, cin + slab[1])
+        numbers["10c"][f"k8_slab_{cin}"] = k8_check(f"on a slab, {cin} -> {cout}", *k8_args)
+        del k8_args
+    if not rehearsal:  # the plain int8 forward takes seconds on the CPU
+        for label, reg in (("sharded", sharded8), ("single", single8)):
+            numbers["10c"][f"{label}_ms"] = timer(lambda: reg.predict_tensors(mov1, fx1), n=1,
+                                                   reps=5, warmup=1)
+        print(f"#   10c: sharded {numbers['10c']['sharded_ms']:.3f} ms per int8 forward, one "
+              f"device {numbers['10c']['single_ms']:.3f} ms (CUDA events)", flush=True)
+    del sharded8, single8, got, want
+    lazy = {}
+    for label, reg in (("sharded", ShardedRegistrar(cfg8, params8, m2)),
+                       ("single", Registrar(cfg8, params8, device=dev))):
+        reg.predict_tensors(mov1, fx1)
+        lazy[label] = reg.quant_scales
+        del reg
+    # the activations are bf16: another cuDNN algorithm on a slab's shape
+    # may round the largest of them to its other neighbour, one bf16 ulp
+    worst = max(abs(float(lazy["sharded"][k]) - float(v)) / bf16_ulp(float(v))
+                for k, v in lazy["single"].items())
+    print(f"#   10c: lazy calibration over slabs against one device: {len(lazy['single'])} scales, "
+          f"worst {worst:.3f} bf16 ulp of the scale (tolerance 1)")
+    check(sorted(lazy["sharded"]) == sorted(lazy["single"]) and worst <= 1.0,
+          "10c: the calibration over slabs disagrees with one device's")
+    numbers["10c"]["calibration_worst_ulp"] = worst
+    del params8
+
+    # ---- 10d. the CLIs with --space 2
+    spec = ",".join(str(d) for d in m2.devices.ravel())
+    print(f"# phase 10d: pair_registration and bids_two_steps through their argv with --space 2 "
+          f"--device {spec}, against the same without the flag", flush=True)
+    cfg_path = os.path.join(tmp, "flagship.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dict(FLAGSHIP), f)
+    numbers["10d"] = {}
+    for tag, flags in (("single", ["--device", str(dev)]),
+                       ("sharded", ["--space", "2", "--device", spec])):
+        d = os.path.join(tmp, "10d", tag)
+        os.makedirs(d)
+        fxp, movp = os.path.join(d, "fx.nii.gz"), os.path.join(d, "mov.nii.gz")
+        nifti.save(nifti.NiftiImage(fx_np, np.eye(4)), fxp)
+        nifti.save(nifti.NiftiImage(mov_np, np.eye(4)), movp)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        pair_registration(["--model-path", CKPT, "--config-path", cfg_path, "--fx-img-path", fxp,
+                           "--mov-img-path", movp, "--fx-img-contrast", "T2w", "--res-dir",
+                           os.path.join(d, "res"), "--one-cpu-tf", "False", *flags])
+        numbers["10d"][f"pair_{tag}_s"] = time.perf_counter() - t0
+        counts[f"10d_pair_{tag}"] = kernels.launch_counts()
+        dc = os.path.join(tmp, "10d", f"cascade_{tag}")
+        os.makedirs(dc)
+        for p in (fxp, movp):
+            shutil.copy(p, dc)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        bids_two_steps(["--model1-path", CKPT_MODEL1, "--model2-path", CKPT, "--config-path",
+                        cfg_path, "--fx-img-path", os.path.join(dc, "fx.nii.gz"),
+                        "--mov-img-path", os.path.join(dc, "mov.nii.gz"), "--fx-img-contrast",
+                        "T2w", "--one-cpu-tf", "False", *flags])
+        numbers["10d"][f"cascade_{tag}_s"] = time.perf_counter() - t0
+        counts[f"10d_cascade_{tag}"] = kernels.launch_counts()
+    if not rehearsal:
+        check(counts["10d_pair_sharded"]["conv3_lrelu_pool"] == 2
+              and counts["10d_cascade_sharded"]["conv3_lrelu_pool"] == 4,
+              f"10d: want K1 twice a sharded forward: {counts['10d_pair_sharded']}, "
+              f"{counts['10d_cascade_sharded']}")
+    numbers["10d"]["pair"] = same_output_files("10d pair_registration",
+                                               os.path.join(tmp, "10d", "single"),
+                                               os.path.join(tmp, "10d", "sharded"))
+    numbers["10d"]["cascade"] = same_output_files("10d bids_two_steps",
+                                                  os.path.join(tmp, "10d", "cascade_single"),
+                                                  os.path.join(tmp, "10d", "cascade_sharded"))
+    walls = {k: v for k, v in numbers["10d"].items() if k.endswith("_s")}
+    print(f"#   10d: wall s {json.dumps(walls)}")
+    n_avail = torch.cuda.device_count() if cuda else 1
+    more = InferenceConfig.from_dict(dict(FLAGSHIP, sharding={"data": n_avail + 1}))
+    try:
+        make_registrar(more, params, device=str(dev) if cuda else ["cpu"])
+        fail(f"10d: make_registrar built a layout of {n_avail + 1} devices on {n_avail}")
+    except ValueError as e:
+        print(f"#   10d: make_registrar with more devices than there are raises: {e}")
+    del single
+
+    # ---- 10e. data-parallel training at full width
+    labels = 26 if not rehearsal else 6
+    print(f"# phase 10e: data-parallel training, {shape}, {labels} labels, batch 2, {{data: 2}} "
+          f"on {mesh(2, 1)}, against one device", flush=True)
+    base = dict(in_shape=list(shape), num_labels=labels, num_maps=4, batch_size=2,
+                enc=[64 if not rehearsal else 8] * 4, dec=[64 if not rehearsal else 8] * 6,
+                save_label=False, verbose=0, model_dir=os.path.join(tmp, "10e_models"),
+                log_dir=os.path.join(tmp, "10e_logs"), label_dir=os.path.join(tmp, "10e_labels"))
+    cfg_t = TrainConfig.from_dict(dict(base, num_devices=2))
+    coarse = torch.randint(0, labels, (2, *(max(s // 8, 1) for s in shape)),
+                           generator=torch.Generator().manual_seed(10), dtype=torch.uint8)
+    maps = coarse.repeat_interleave(8, 1).repeat_interleave(8, 2).repeat_interleave(8, 3)
+    maps = maps[:, :shape[0], :shape[1], :shape[2]].contiguous().numpy()
+    steps, step_ms, step_peak = {}, {}, {}
+    for n in (2, 1):
+        trainer = Trainer(cfg_t, mesh=mesh(n, 1))
+        trainer.init_state(seed=11)
+        src, trg = trainer.put_batch(maps, maps[::-1].copy())
+        kernels.reset_launch_counts()
+        aux = trainer.train_step(trainer.generator(12), src, trg)
+        loss = float(aux["loss"])
+        if n == 2:
+            counts["10e_step"] = kernels.launch_counts()
+        steps[n] = (loss, {k: (p.detach().clone(), p.grad.detach().clone())
+                           for k, p in trainer.model.named_parameters()})
+        gen = trainer.generator(13)
+        peak_reset()
+        step_ms[n] = timer(lambda: trainer.train_step(gen, src, trg), n=1, reps=5, warmup=1)
+        step_peak[n] = peak_mib()
+        del trainer, src, trg, aux
+    print(f"#   10e: launches of a 2-replica step {counts['10e_step']}")
+    print(f"#   10e: a step at batch 2: {step_ms[2] / 1e3:.4f} s on 2 replicas, peak "
+          f"{step_peak[2]:.1f} MiB; {step_ms[1] / 1e3:.4f} s on one device, peak "
+          f"{step_peak[1]:.1f} MiB (median of 5, {'CUDA events' if cuda else 'host clock, CPU'})",
+          flush=True)
+    if not rehearsal:
+        check(counts["10e_step"] == DP_STEP_WANT,
+              f"10e: a 2-replica step launched {counts['10e_step']}, want {DP_STEP_WANT}")
+    (loss2, p2), (loss1, p1) = steps[2], steps[1]
+    # The loss to the JAX package's tolerance. The gradients to the bounds
+    # of phase 5's kernel-vs-plain check: bf16 convs at batch 1 a replica
+    # against batch 2 sum in another order. The parameters after Adam to
+    # the JAX package's rtol 1e-4 / atol 2e-5, all but at most 1e-4 of them:
+    # Adam's first step is lr * g / (|g| + eps); most gradients of a fresh
+    # model (its flow head starts near zero) lie below eps, where the step is
+    # linear in g, so the comparison holds them to about atol * eps / lr; a
+    # few near eps, whose bits differ, move by different steps. Each side
+    # must be the common start moved by Adam's step of its own gradient.
+    # On one card the mesh repeats cuda:0 and both replicas are one model
+    # (``replicate`` keeps one copy a device): the two replicas' backwards
+    # sum into its gradients, and the copy-and-sum of distinct devices runs
+    # only in the CPU tests (``cpu`` and ``cpu:0``)
+    loss_tol = 1e-5 + 1e-5 * abs(loss1)
+    check(abs(loss2 - loss1) <= loss_tol, f"10e: loss {loss2} against one device's {loss1}")
+    worst_g, worst_cos, far, total, worst_adam = 0.0, 1.0, 0, 0, 0.0
+    for k, (w1, g1) in p1.items():
+        w2, g2 = p2[k]
+        rel = float((g2 - g1).abs().max() / g1.abs().max().clamp_min(1e-30))
+        cos = float((g1 * g2).sum() / (g1.norm() * g2.norm()).clamp_min(1e-30))
+        worst_g, worst_cos = max(worst_g, rel), min(worst_cos, cos)
+        step = {i: cfg_t.lr * g / (g.abs() + 1e-8) for i, g in ((1, g1), (2, g2))}
+        adam = float(((w2 - w1) - (step[1] - step[2])).abs().max())
+        worst_adam = max(worst_adam, adam)
+        far += int((~torch.isclose(w2, w1, rtol=1e-4, atol=2e-5)).sum())
+        total += g1.numel()
+        check(adam <= 1e-6, f"10e: parameter {k} after Adam: {adam:.3e} off the steps of the two "
+              f"gradients")
+        check(rel <= 0.1 and cos >= 0.995, f"10e: gradient of {k}: {rel:.3e} of max, cos {cos:.5f}")
+    check(far <= 1e-4 * total, f"10e: {far} of {total} parameters beyond rtol 1e-4 / atol 2e-5")
+    numbers["10e"] = {"loss": loss2, "loss_1dev": loss1, "grad_worst_rel": worst_g,
+                      "grad_worst_cos": worst_cos, "params_beyond_tol": far,
+                      "params": total, "adam_worst": worst_adam,
+                      "step_s": step_ms[2] / 1e3, "step_peak_mib": step_peak[2],
+                      "step_1dev_s": step_ms[1] / 1e3, "step_1dev_peak_mib": step_peak[1]}
+    print(f"#   10e: loss {loss2:.6f} against one device's {loss1:.6f} (tolerance {loss_tol:.2e}); "
+          f"gradients worst {worst_g:.3e} of the leaf's max, cosine >= {worst_cos:.5f} (0.1, "
+          f"0.995); parameters beyond rtol 1e-4 / atol 2e-5: {far} of {total} (at most 1e-4 of "
+          f"them); each side the start moved by Adam's step of its gradient (worst "
+          f"{worst_adam:.3e}, tolerance 1e-6)", flush=True)
+    del steps, p1, p2
+    spec_t = ",".join(str(d) for d in mesh_devices_of(dev, 2))
+    peak_reset()
+    kernels.reset_launch_counts()
+    out = run_training(TrainConfig.from_dict(dict(base, num_devices=2)), max_steps=2,
+                       device=spec_t)
+    counts["10e_run"] = kernels.launch_counts()
+    check(out["steps"] == 2 and out["trainer"].mesh.shape["data"] == 2
+          and all(np.isfinite(r["loss"]) for r in out["history"]),
+          f"10e: run_training on 2 replicas: {out['history']}")
+    numbers["10e"].update({"run_step_s": out["step_seconds"], "run_peak_mib": peak_mib()})
+    print(f"#   10e: run_training num_devices 2 on {spec_t}, 2 steps: s/step "
+          f"{[round(s, 4) for s in out['step_seconds']]} (host clock, each ending in a read of "
+          f"the loss), peak {numbers['10e']['run_peak_mib']:.1f} MiB; launches {counts['10e_run']}",
+          flush=True)
+    del out
+
+    numbers["total_s"] = time.perf_counter() - t_phase
+    print(f"#   phase 10: {numbers['total_s']:.1f} s of its budget of {PHASE10_BUDGET_S} s",
+          flush=True)
+    return counts, numbers
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -2285,7 +2795,13 @@ def main() -> None:
                            "device_ops", "plain_ms", "library_ms", "library_device_ms")}
         | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]} for r in k8_rows]
 
-    # ---- 10. report ----------------------------------------------------------
+    # ---- 10. multi-GPU ----------------------------------------------------------
+    clear_scratch()
+    with tempfile.TemporaryDirectory() as td:
+        multi_launches, multi_numbers = multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, td)
+    print(f"#   phase 10 numbers: {json.dumps(multi_numbers)}")
+
+    # ---- 11. report ----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
     # before it: register() for K1-K3, run_training() for K4-K7, register()
     # with the published config in int8 (7d) for K8
@@ -2305,6 +2821,7 @@ def main() -> None:
             **{f"launches_{phase}": n[k.name] for phase, n in w256_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in pipe_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in learn_launches.items()},
+            **{f"launches_{phase}": n[k.name] for phase, n in multi_launches.items()},
             "max_abs_err": results[k.name]["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
@@ -2335,7 +2852,11 @@ def main() -> None:
           f"phase8_s {pipe_numbers['total_s']:.1f} "
           f"learn_s_per_step_p50 {learn_numbers['9a']['step_seconds']['p50']:.4f} "
           f"learned {str(learn_numbers['9a']['learned']).lower()} "
-          f"phase9_s {learn_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
+          f"phase9_s {learn_numbers['total_s']:.1f} "
+          f"sharded_forward_ms {multi_numbers['10a']['sharded_ms']:.4f} "
+          f"dp_step_s {multi_numbers['10e']['step_s']:.4f} "
+          f"dp_step_1dev_s {multi_numbers['10e']['step_1dev_s']:.4f} "
+          f"phase10_s {multi_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

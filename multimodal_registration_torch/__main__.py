@@ -3,7 +3,7 @@
     python -m multimodal_registration_torch <command> [flags]
 
 Commands (each takes the flags of the JAX package's CLI of the same name,
-without the sharding flags, plus ``--device``; ``--help`` lists them):
+plus ``--device``; ``--help`` lists them):
 
   bids-registration    BIDS single-model registration (bids_registration.py)
   bids-two-steps       BIDS two-step cascade (bids_two_steps_registration.py)

@@ -1,6 +1,7 @@
 """Inference CLIs of the port, drop-in equivalents of the JAX package's
-(``multimodal_registration_tpu/infer/cli.py``) without the sharding flags,
-plus ``--device`` (default: the GPU; ``cpu`` runs on the CPU):
+(``multimodal_registration_tpu/infer/cli.py``), plus ``--device`` (default:
+the GPU; ``cpu`` runs on the CPU; a comma-separated list names the devices
+of a sharded layout in order, e.g. ``cuda:0,cuda:1``):
 
   * :func:`pair_registration` (``3d_reg.py``)::
 
@@ -12,6 +13,10 @@ plus ``--device`` (default: the GPU; ``cpu`` runs on the CPU):
     :func:`gen_apply_def_field` (``gen_apply_def_field.py``) and
     :func:`quant_calibrate` (the JAX package's ``mmreg-calibrate``), reached
     through ``python -m multimodal_registration_torch <command>``.
+
+``--space N`` shards each volume's X axis over N devices and
+``--data-shard N`` the batch (they override the config's ``sharding``);
+every registrar comes from ``infer/sharded.py::make_registrar``.
 
 With ``quantize: "int8"`` in the config, every registrar reads the int8
 scales from ``<model>.quant.json`` or calibrates them on its first pair and
@@ -30,7 +35,8 @@ from multimodal_registration_torch.device import resolve_device
 from multimodal_registration_torch.infer.cascade import register_two_steps
 from multimodal_registration_torch.infer.config import InferenceConfig
 from multimodal_registration_torch.infer.register import (
-    Registrar, load_params_any, register, vxm_config_from)
+    load_params_any, register, vxm_config_from)
+from multimodal_registration_torch.infer.sharded import make_registrar
 from multimodal_registration_torch.models.quantize import sidecar_kwargs
 from multimodal_registration_torch.utils import io as vio
 from multimodal_registration_torch.utils import nifti
@@ -45,6 +51,23 @@ def _add_common_flags(p: argparse.ArgumentParser):
                    help="pin host-side PyTorch work to one thread (sct_run_batch -jobs N)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; pass cpu to run on the CPU)")
+
+
+def _add_sharding_flags(p: argparse.ArgumentParser):
+    p.add_argument("--space", type=int, default=None,
+                   help="shard the volume X-axis over N chips (multi-chip "
+                        "inference; overrides the config's sharding.space). The chips: "
+                        "every card, or those --device lists (cuda:0,cuda:1; one may repeat)")
+    p.add_argument("--data-shard", type=int, default=None,
+                   help="shard the batch axis over N chips (overrides the "
+                        "config's sharding.data)")
+
+
+def _apply_sharding_flags(cfg: InferenceConfig, args):
+    if getattr(args, "space", None):
+        cfg.sharding = {**cfg.sharding, "space": args.space}
+    if getattr(args, "data_shard", None):
+        cfg.sharding = {**cfg.sharding, "data": args.data_shard}
 
 
 def _maybe_one_cpu(flag: str):
@@ -67,6 +90,7 @@ def pair_registration(argv=None):
     p.add_argument("--resample-interp", default=None,
                    help="override resample interpolation (linear/nearest/spline)")
     _add_common_flags(p)
+    _add_sharding_flags(p)
     args = p.parse_args(argv)
     _maybe_one_cpu(args.one_cpu_tf)
 
@@ -75,8 +99,9 @@ def pair_registration(argv=None):
         cfg.warp_interpolation = args.warp_interp
     if args.resample_interp:
         cfg.resample_interpolation = args.resample_interp
+    _apply_sharding_flags(cfg, args)
     params = load_params_any(args.model_path, cfg)
-    reg = Registrar(cfg, params, device=args.device, **sidecar_kwargs(args.model_path, cfg))
+    reg = make_registrar(cfg, params, device=args.device, **sidecar_kwargs(args.model_path, cfg))
     return register(
         cfg, reg, args.fx_img_path, args.mov_img_path,
         fx_contrast=args.fx_img_contrast, naming="standalone", res_dir=args.res_dir,
@@ -93,12 +118,14 @@ def bids_registration(argv=None):
     p.add_argument("--mov-img-path", required=True)
     p.add_argument("--fx-img-contrast", default="T1w")
     _add_common_flags(p)
+    _add_sharding_flags(p)
     args = p.parse_args(argv)
     _maybe_one_cpu(args.one_cpu_tf)
 
     cfg = InferenceConfig.from_json(args.config_path)
-    reg = Registrar(cfg, load_params_any(args.model_path, cfg), device=args.device,
-                    **sidecar_kwargs(args.model_path, cfg))
+    _apply_sharding_flags(cfg, args)
+    reg = make_registrar(cfg, load_params_any(args.model_path, cfg), device=args.device,
+                         **sidecar_kwargs(args.model_path, cfg))
     return register(cfg, reg, args.fx_img_path, args.mov_img_path,
                     fx_contrast=args.fx_img_contrast, naming="bids")
 
@@ -112,15 +139,17 @@ def bids_two_steps(argv=None):
     p.add_argument("--mov-img-path", required=True)
     p.add_argument("--fx-img-contrast", default="T1w")
     _add_common_flags(p)
+    _add_sharding_flags(p)
     args = p.parse_args(argv)
     _maybe_one_cpu(args.one_cpu_tf)
 
     cfg = InferenceConfig.from_json(args.config_path)
-    reg1 = Registrar(cfg, load_params_any(args.model1_path, cfg), device=args.device,
-                     svf_smooth_sigma=cfg.model1_svf_smooth_sigma,
-                     **sidecar_kwargs(args.model1_path, cfg))
-    reg2 = Registrar(cfg, load_params_any(args.model2_path, cfg), device=args.device,
-                     **sidecar_kwargs(args.model2_path, cfg))
+    _apply_sharding_flags(cfg, args)
+    reg1 = make_registrar(cfg, load_params_any(args.model1_path, cfg), device=args.device,
+                          svf_smooth_sigma=cfg.model1_svf_smooth_sigma,
+                          **sidecar_kwargs(args.model1_path, cfg))
+    reg2 = make_registrar(cfg, load_params_any(args.model2_path, cfg), device=args.device,
+                          **sidecar_kwargs(args.model2_path, cfg))
     return register_two_steps(cfg, reg1, reg2, args.fx_img_path, args.mov_img_path,
                               fx_contrast=args.fx_img_contrast)
 

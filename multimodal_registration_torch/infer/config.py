@@ -2,9 +2,8 @@
 ``config/config_inference.json``.
 
 Counterpart of ``multimodal_registration_tpu/infer/config.py``: the same
-keys, defaults and validation. ``sharding`` is parsed and validated as
-there; a layout of more than one device raises ``NotImplementedError``
-naming the ROADMAP item the port waits for.
+keys, defaults and validation. ``sharding`` (``{"data": N, "space": M}``)
+selects the multi-device registrar (``infer/sharded.py::make_registrar``).
 """
 
 from __future__ import annotations
@@ -65,7 +64,6 @@ class InferenceConfig:
             raise ValueError(
                 f"unknown quantize mode {cfg.quantize!r}: supported values are "
                 "\"int8\" or \"\"/null (full precision)")
-        check_supported(cfg)
         return cfg
 
     def round16(self, x: int, axis: int | None = None) -> int:
@@ -78,10 +76,3 @@ class InferenceConfig:
             return int(-(-int(x) // q) * q)
         return int((int(x) // q) * q)
 
-
-def check_supported(cfg: InferenceConfig) -> None:
-    """Raise for the settings the port does not run yet."""
-    if any(v not in (None, 1) for v in cfg.sharding.values()):
-        raise NotImplementedError(
-            f"sharding {cfg.sharding} is not ported yet (ROADMAP queue 1 item 15, "
-            "multi-GPU)")

@@ -26,7 +26,7 @@ import torch
 
 from multimodal_registration_torch.device import resolve_device
 from multimodal_registration_torch.infer.blend import blend_subvol_fields
-from multimodal_registration_torch.infer.config import InferenceConfig, check_supported
+from multimodal_registration_torch.infer.config import InferenceConfig
 from multimodal_registration_torch.infer.preprocess import preprocess
 from multimodal_registration_torch.models import quantize as qmod
 from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
@@ -90,7 +90,6 @@ class Registrar:
     def __init__(self, cfg: InferenceConfig, params: dict, max_batch: int = 4,
                  device=None, svf_smooth_sigma: float | None = None, impl=None,
                  quant_scales=None, quant_sidecar: str | None = None):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.vxm_cfg = vxm_config_from(cfg, svf_smooth_sigma)

@@ -124,24 +124,48 @@ class Unet(nn.Module):
         self.out_channels = ch
 
     def forward(self, x, impl=None, pool_tie="equal"):
-        x = x.to(self.dtype)
-        nb_levels = len(self.enc_nf) + 1
         fused_first = (self.nb_upsample_skips >= 1
                        and not needs_grad(x, *self.parameters()))
+        return self.walk(x.to(self.dtype), WholeVolume(self, impl, pool_tie), fused_first)
+
+    def walk(self, x, layers, fused_first: bool):
+        """The U-Net's topology over ``x``, each step run by ``layers``
+        (:class:`WholeVolume`, or the X slabs of ``parallel/spatial.py``):
+        ``conv(name, x)``, ``conv_pooled(name, x)`` (enc_0 on K1 when
+        ``fused_first``), ``pool(x)`` and ``up_cat(x, skip)``."""
+        nb_levels = len(self.enc_nf) + 1
         skips = [x]
         for i in range(len(self.enc_nf)):
-            block = getattr(self, f"enc_{i}")
             if i == 0 and fused_first:
-                x = block.forward_pooled(x, impl=impl)
+                x = layers.conv_pooled("enc_0", x)
                 skips.append(None)  # never popped; keeps pop order aligned
                 continue
-            x = block(x, impl=impl)
+            x = layers.conv(f"enc_{i}", x)
             skips.append(x)
-            x = max_pool_2x(x, tie=pool_tie, impl=impl)
+            x = layers.pool(x)
         for i in range(len(self.dec_nf[: nb_levels - 1])):
-            x = getattr(self, f"dec_{i}")(x, impl=impl)
+            x = layers.conv(f"dec_{i}", x)
             if i < nb_levels - 1 - self.nb_upsample_skips:
-                x = torch.cat([_upsample_nearest_2x(x), skips.pop()], dim=-1)
+                x = layers.up_cat(x, skips.pop())
         for j in range(len(self.dec_nf[nb_levels - 1:])):
-            x = getattr(self, f"final_{j}")(x, impl=impl)
+            x = layers.conv(f"final_{j}", x)
         return x
+
+
+class WholeVolume:
+    """The steps of :meth:`Unet.walk` on one tensor ``(B, X, Y, Z, C)``."""
+
+    def __init__(self, unet: Unet, impl=None, pool_tie: str = "equal"):
+        self.unet, self.impl, self.pool_tie = unet, impl, pool_tie
+
+    def conv(self, name, x):
+        return getattr(self.unet, name)(x, impl=self.impl)
+
+    def conv_pooled(self, name, x):
+        return getattr(self.unet, name).forward_pooled(x, impl=self.impl)
+
+    def pool(self, x):
+        return max_pool_2x(x, tie=self.pool_tie, impl=self.impl)
+
+    def up_cat(self, x, skip):
+        return torch.cat([_upsample_nearest_2x(x), skip], dim=-1)

@@ -86,7 +86,9 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 class VxmDense(nn.Module):
     """Inputs ``moving``/``fixed``: ``(B, X, Y, Z, 1)`` floats, spatial dims
-    multiples of 16."""
+    multiples of 16. :meth:`forward` is :meth:`tail` of :meth:`flow_head` of
+    the U-Net's features; the sharded forward (``parallel/spatial.py``) runs
+    the U-Net and the head on X slabs and the tail on the whole field."""
 
     def __init__(self, cfg: VxmConfig = VxmConfig(), device=None, quant_calibrate: bool = False):
         super().__init__()
@@ -133,19 +135,29 @@ class VxmDense(nn.Module):
     def forward(self, moving: torch.Tensor, fixed: torch.Tensor, impl=None,
                 with_moved: bool = True, with_fullres: bool = True,
                 pool_tie: str = "equal") -> dict:
-        cfg = self.cfg
         inshape = tuple(moving.shape[1:4])
         if any(d % 16 for d in inshape):
             raise ValueError(
                 f"spatial dims must be multiples of 16 (got {inshape}); the "
                 "preprocessing pads to floor16 shapes")
         feat = self.unet(torch.cat([moving, fixed], dim=-1), impl=impl, pool_tie=pool_tie)
+        return self.tail(moving, self.flow_head(feat), impl=impl, with_moved=with_moved,
+                         with_fullres=with_fullres)
 
-        # the flow head is float32; cuDNN would otherwise run it in TF32
+    def flow_head(self, feat: torch.Tensor) -> torch.Tensor:
+        """The float32 3³ SAME conv from the U-Net's features to the SVF
+        ``(B, x, y, z, 3)``; cuDNN would otherwise run it in TF32."""
         with full_fp32_convs():
-            svf = _ndhwc(F.conv3d(_ncdhw(feat.float()), self.flow.weight,
-                                  self.flow.bias, padding=1)).contiguous()
+            return _ndhwc(F.conv3d(_ncdhw(feat.float()), self.flow.weight,
+                                   self.flow.bias, padding=1)).contiguous()
 
+    def tail(self, moving: torch.Tensor, svf: torch.Tensor, impl=None,
+             with_moved: bool = True, with_fullres: bool = True) -> dict:
+        """From the head's SVF to the outputs of :meth:`forward`: rescale,
+        smoothing, integration (K2), the full-res field and the moved image
+        (K3). ``moving`` is the forward's input ``(B, X, Y, Z, 1)``."""
+        cfg = self.cfg
+        inshape = tuple(moving.shape[1:4])
         svf_shape = tuple(int(round(d / cfg.svf_res)) for d in inshape)
         if tuple(svf.shape[1:4]) != svf_shape:
             f = svf_shape[0] / svf.shape[1]

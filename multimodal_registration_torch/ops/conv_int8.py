@@ -197,7 +197,7 @@ class Int8ConvPlan:
 
 # (data_ptr, _version) of w and b, amax, device, stream -> (w, b, matrix, scale, bias)
 _PREPARED: dict = {}
-_PREPARED_MAX = 32  # the nine int8 convs of a model, for the two models of the cascade
+_PREPARED_MAX = 32  # a device's: the nine int8 convs of each of the cascade's two models
 
 
 def prepared_int8_weights(w: torch.Tensor, b: torch.Tensor, amax):
@@ -205,8 +205,9 @@ def prepared_int8_weights(w: torch.Tensor, b: torch.Tensor, amax):
     activation scale and per stream (as ``ops/conv_pool.py::prepared_weights``
     makes K1's): the int8 matrix of :func:`gemm_int8_weights`, ``scale =
     a_scale * w_scale`` and the bias, both float32 padded like the matrix's
-    rows. An entry keeps ``w`` and ``b`` alive; the oldest entry goes first
-    when the cache is full; inference tensors track no version and are
+    rows. An entry keeps ``w`` and ``b`` alive; each device holds at most
+    ``_PREPARED_MAX`` entries, its oldest going first, so a mesh of several
+    cards keeps every card's; inference tensors track no version and are
     prepared anew on every call."""
     try:
         key = (w.data_ptr(), w._version, b.data_ptr(), b._version, float(np.float32(amax)),
@@ -222,8 +223,9 @@ def prepared_int8_weights(w: torch.Tensor, b: torch.Tensor, amax):
                      F.pad(dequant_scale(w_scale, amax), (0, pad)).contiguous(),
                      F.pad(b.float(), (0, pad)).contiguous())
         if key is not None:
-            if len(_PREPARED) >= _PREPARED_MAX:
-                del _PREPARED[next(iter(_PREPARED))]
+            mine = [k for k in _PREPARED if k[5] == w.device]
+            if len(mine) >= _PREPARED_MAX:
+                del _PREPARED[mine[0]]
             _PREPARED[key] = entry
     return entry[2:]
 

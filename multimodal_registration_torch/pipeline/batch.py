@@ -3,7 +3,8 @@ copy of ``multimodal_registration_tpu/pipeline/batch.py``:
 
     python -m multimodal_registration_torch pipeline --path-data DATA \\
         --path-output OUT --model-path w.npz [--config-path cfg.json] \\
-        [--model2-path w2.npz] [--opt-affine] [--device cpu]
+        [--model2-path w2.npz] [--opt-affine] [--space N] [--data-shard N] \\
+        [--device cpu]
 
 Parity target: ``sct_run_batch -jobs N -path-data … -path-output … -script …``
 (`README.md:128-132`): subject discovery, provisioning of output/QC/log
@@ -111,8 +112,10 @@ def run_batch(
     """Register and evaluate every (selected) subject of the BIDS dataset
     ``path_data`` into ``path_output`` on ``device`` (default: the GPU);
     returns ``(results, summary)``. ``pipeline_kwargs`` are
-    :class:`PipelineConfig` fields; ``sharding`` of more than one device
-    raises (not ported yet)."""
+    :class:`PipelineConfig` fields; ``sharding`` (``{"data": N, "space":
+    M}``, None entries ignored) overrides the config's, and a layout of more
+    than one device registers on a mesh of the devices ``device`` offers
+    (``infer/sharded.py::make_registrar``)."""
     # pipeline stages read just-written volumes again: prime the decoded-file
     # cache on save, and let the gzip and disk work of a subject's saves run
     # behind its later stages (readers are served from the pending-content
@@ -261,8 +264,13 @@ def main(argv=None):
                    help="exact subject names to keep (sct_run_batch -include-list)")
     p.add_argument("--exclude-list", nargs="*", default=None,
                    help="exact subject names to drop (sct_run_batch -exclude-list)")
+    p.add_argument("--space", type=int, default=None,
+                   help="shard each volume's X-axis over N chips (multi-chip)")
+    p.add_argument("--data-shard", type=int, default=None,
+                   help="shard the inference batch axis over N chips")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda; pass cpu to run on the CPU)")
+                   help="torch device (default: cuda; pass cpu to run on the CPU); with "
+                        "--space/--data-shard a comma-separated list names the chips")
     a = p.parse_args(argv)
     _, summary = run_batch(
         a.path_data, a.path_output, a.model_path,
@@ -270,7 +278,8 @@ def main(argv=None):
         include=a.include, exclude=a.exclude,
         include_list=a.include_list, exclude_list=a.exclude_list,
         fx_contrast=a.fx_contrast, mov_contrast=a.mov_contrast,
-        opt_affine=a.opt_affine, min_sc_dice=a.min_sc_dice, device=a.device,
+        opt_affine=a.opt_affine, min_sc_dice=a.min_sc_dice,
+        sharding={"space": a.space, "data": a.data_shard}, device=a.device,
     )
     print(json.dumps(summary, indent=2))
     return summary

@@ -5,7 +5,11 @@
 Flow: load the config, generate (on the device) or load the label maps,
 seeded shuffle and train/val split, build the trainer, save the epoch-0
 checkpoint, fit with per-epoch ``metrics.csv`` rows and checkpoints, save
-``final``. Runs on the GPU unless ``--device cpu`` is given.
+``final``. Runs on the GPU unless ``--device cpu`` is given. With
+``num_devices`` > 1 in the config the batch is split over that many devices
+(data-parallel, ``train/trainer.py``): every card by default, or those
+``--device`` lists (``cuda:0,cuda:1``; one may repeat; ``cpu`` repeats the
+CPU).
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ import time
 import numpy as np
 import torch
 
-from multimodal_registration_torch.device import resolve_device
 from multimodal_registration_torch.ops.pool import TIES
+from multimodal_registration_torch.parallel.mesh import first_device
 from multimodal_registration_torch.synth.labelmaps import generate_label_maps
 from multimodal_registration_torch.train.config import TrainConfig
 from multimodal_registration_torch.train.trainer import Trainer
@@ -50,7 +54,7 @@ def run_training(cfg: TrainConfig, max_steps: int | None = None, device=None,
     per epoch), ``params`` (the final state dict), ``steps``, ``step_seconds``
     (host seconds of each step, each ending in a read of the loss) and the
     ``trainer``."""
-    dev = resolve_device(device)
+    dev = first_device(device)
     if cfg.num_devices is not None and cfg.batch_size % cfg.num_devices:
         raise ValueError(f"batch size {cfg.batch_size} not a multiple of the number of "
                          f"devices {cfg.num_devices}")
@@ -117,7 +121,7 @@ def run_training(cfg: TrainConfig, max_steps: int | None = None, device=None,
         os.makedirs(log_dir, exist_ok=True)
 
     # ---- trainer ------------------------------------------------------------
-    trainer = Trainer(cfg, device=dev, pool_tie=pool_tie)
+    trainer = Trainer(cfg, device=device, pool_tie=pool_tie)
     init_epoch = cfg.init_epoch
     if cfg.bool_init_weights:
         trainer.load_checkpoint(cfg.init_weights, with_opt=True)
@@ -204,10 +208,12 @@ def run_training(cfg: TrainConfig, max_steps: int | None = None, device=None,
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="Train a SynthMorph model on images synthesized from label maps "
-                    "(PyTorch, one NVIDIA GPU).")
+                    "(PyTorch, NVIDIA GPUs).")
     p.add_argument("--config-path", default="config/config.json")
     p.add_argument("--max-steps", type=int, default=None, help="optional step cap (debug)")
-    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--device", default=None,
+                   help="cuda (default: every card) or cpu, or a comma-separated list of the "
+                        "data-parallel replicas' devices (cuda:0,cuda:1)")
     p.add_argument("--pool-tie", default="equal", choices=TIES,
                    help="tie rule of the max-pool backward (ops/pool.py)")
     arg = p.parse_args(argv)

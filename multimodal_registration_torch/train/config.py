@@ -66,7 +66,8 @@ class TrainConfig:
     # extensions (not in the reference config; safe defaults)
     seed: int = 42
     compute_dtype: str = "bfloat16"
-    num_devices: Optional[int] = None  # more than one is not ported yet
+    # data-parallel replicas; None: the most of the devices there are that divide the batch
+    num_devices: Optional[int] = None
     # global-norm gradient clipping; 0 disables
     grad_clip_norm: float = 0.0
     # type of the gathered values in the full-res composed-field warp of the

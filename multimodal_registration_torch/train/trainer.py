@@ -7,10 +7,21 @@ source labels once by the composed generator and model field, and take
 ``dice(map_2, pred) + 1 + Grad('l2', reg_param)``. The whole label-map bank
 lives on the device and a step gathers its batch there.
 
-The step is split where the random numbers end: :func:`synthesize` draws
-and builds a batch (no gradient flows into it), :func:`loss_from_batch` is
-deterministic. The parity tests hand :func:`loss_from_batch` the batch that
-the JAX package synthesised.
+The step is split where the random numbers end: :func:`draw_batch` draws
+every random number of a batch from one generator, :func:`build_batch`
+synthesises the images from them (:func:`synthesize` is both; no gradient
+flows into it), :func:`loss_from_batch` is deterministic. The parity tests
+hand :func:`loss_from_batch` the batch that the JAX package synthesised.
+
+Data-parallel training (``Trainer(cfg, mesh=...)`` or ``num_devices`` > 1)
+splits the batch over the ``data`` axis of a mesh (``parallel/mesh.py``),
+one controller for all replicas, and keeps the JAX package's invariant: an
+n-replica step equals the 1-device step on the same generator, maps and
+parameters. The draws run on the first device in the 1-device order; each
+replica builds its samples and scores them on its device, its loss weighted
+by its share of the batch; the gradients are summed onto the first device in
+replica order, clipped and applied there, and the parameters copied back to
+the other devices before the next step.
 
 Kernels on this path, per step at batch B: K2 x11 (5 for the generators'
 integration, 5 for the model's, 1 compose), K5 x6 (their backward; the
@@ -18,10 +29,10 @@ generators' need none), K6 x3B (two synthesis warps and the loss's), K7 x1,
 K4 x4 (the pools of enc_0..enc_3). K1 and K3 are inference kernels: enc_0
 runs unfused and ``moved`` is not computed.
 
-Differences from the JAX trainer: one device only (``num_devices`` > 1 is
-not ported), checkpoints are the flat ``.npz`` (either package loads the
-other's) plus a ``torch.save`` of the optimizer state, and the pool
-adjoint's tie rule is an argument (``pool_tie``), not an environment switch.
+Differences from the JAX trainer: checkpoints are the flat ``.npz``
+(either package loads the other's) plus a ``torch.save`` of the optimizer
+state, and the pool adjoint's tie rule is an argument (``pool_tie``), not an
+environment switch.
 """
 
 from __future__ import annotations
@@ -33,7 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from multimodal_registration_torch.device import full_fp32_convs, resolve_device
+from multimodal_registration_torch.device import full_fp32_convs
 from multimodal_registration_torch.losses import dice_loss, dice_loss_zeropad, grad_loss
 from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
 from multimodal_registration_torch.models.weights import params_from_jax, params_to_jax
@@ -42,6 +53,7 @@ from multimodal_registration_torch.ops.integrate import integrate_svf_batch
 from multimodal_registration_torch.ops.pool import TIES
 from multimodal_registration_torch.ops.resize import rescale_field
 from multimodal_registration_torch.ops.warp import warp_onehot_batch
+from multimodal_registration_torch.parallel.mesh import make_mesh, mesh_devices, replicate
 from multimodal_registration_torch.synth.augment import maybe_zero_borders, random_flips
 from multimodal_registration_torch.synth.image_engine import (
     ImageEngineConfig,
@@ -80,15 +92,12 @@ def vxm_config_from(cfg: TrainConfig) -> VxmConfig:
 
 
 @torch.no_grad()
-def synthesize(gen: torch.Generator, src_lab: torch.Tensor, trg_lab: torch.Tensor,
-               engine_cfg: ImageEngineConfig, cfg: TrainConfig, zero_borders: bool,
-               impl=None) -> dict:
-    """Augment ``(B, X, Y, Z)`` integer label maps and synthesise the batch:
-    ``img1``, ``img2`` ``(B, X, Y, Z)``; ``raw1`` the augmented source labels
-    (int32); ``phi1`` the source generator's full-res field and ``phi1s`` its
-    reduced-grid field (or ``None``); ``map2`` the target's soft one-hot map
-    ``(B, X, Y, Z, L)``. Both generators' SVFs are integrated in one batched
-    scaling and squaring (2B fields)."""
+def draw_batch(gen: torch.Generator, src_lab: torch.Tensor, trg_lab: torch.Tensor,
+               engine_cfg: ImageEngineConfig, cfg: TrainConfig, zero_borders: bool) -> dict:
+    """Every random number of a batch, drawn from ``gen`` sample by sample:
+    the augmented ``(B, X, Y, Z)`` label maps ``src`` and ``trg`` (flips,
+    zero borders) and the two generators' draws ``r1``, ``r2`` (one dict a
+    sample), on the maps' device."""
     B = src_lab.shape[0]
     in_shape = tuple(src_lab.shape[1:4])
     dev = src_lab.device
@@ -102,7 +111,35 @@ def synthesize(gen: torch.Generator, src_lab: torch.Tensor, trg_lab: torch.Tenso
         t_aug.append(t)
         r1.append(draw_engine_randoms(gen, in_shape, engine_cfg, dev))
         r2.append(draw_engine_randoms(gen, in_shape, engine_cfg, dev))
+    return {"src": s_aug, "trg": t_aug, "r1": r1, "r2": r2}
 
+
+def _to(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, device) for v in x)
+    return x
+
+
+def draws_of(draws: dict, rows: slice, device) -> dict:
+    """The draws of samples ``rows``, copied to ``device``."""
+    return {k: _to(vs[rows], device) for k, vs in draws.items()}
+
+
+@torch.no_grad()
+def build_batch(draws: dict, engine_cfg: ImageEngineConfig, impl=None) -> dict:
+    """Synthesise the batch of :func:`draw_batch`'s draws: ``img1``,
+    ``img2`` ``(B, X, Y, Z)``; ``raw1`` the augmented source labels (int32);
+    ``phi1`` the source generator's full-res field and ``phi1s`` its
+    reduced-grid field (or ``None``); ``map2`` the target's soft one-hot map
+    ``(B, X, Y, Z, L)``. Both generators' SVFs are integrated in one batched
+    scaling and squaring (2B fields)."""
+    s_aug, t_aug, r1, r2 = draws["src"], draws["trg"], draws["r1"], draws["r2"]
+    B = len(s_aug)
+    in_shape = tuple(s_aug[0].shape[:3])
     ph1 = ph2 = [None] * B
     if reduced_svf_grid(in_shape, engine_cfg) is not None:
         svfs = torch.stack([draw_svf_small(r, in_shape, engine_cfg) for r in r1 + r2])
@@ -119,6 +156,15 @@ def synthesize(gen: torch.Generator, src_lab: torch.Tensor, trg_lab: torch.Tenso
         for k, v in zip(cols, (img1, raw1, phi1, phi1s, img2, map2)):
             cols[k].append(v)
     return {k: (None if v[0] is None else torch.stack(v)) for k, v in cols.items()}
+
+
+def synthesize(gen: torch.Generator, src_lab: torch.Tensor, trg_lab: torch.Tensor,
+               engine_cfg: ImageEngineConfig, cfg: TrainConfig, zero_borders: bool,
+               impl=None) -> dict:
+    """Augment ``(B, X, Y, Z)`` integer label maps and synthesise the batch
+    (:func:`build_batch` of :func:`draw_batch`)."""
+    return build_batch(draw_batch(gen, src_lab, trg_lab, engine_cfg, cfg, zero_borders),
+                       engine_cfg, impl)
 
 
 def _compose_plan(cfg: TrainConfig, vxm_cfg: VxmConfig, full_shape, phi_grid):
@@ -176,19 +222,6 @@ def loss_from_batch(model: VxmDense, batch: dict, engine_cfg: ImageEngineConfig,
     return loss, {"dice_loss": d.detach(), "grad_loss": g.detach(), "loss": loss.detach()}
 
 
-def make_loss_fn(model: VxmDense, engine_cfg: ImageEngineConfig, cfg: TrainConfig,
-                 zero_borders: bool, pool_tie: str = "equal"):
-    """The per-batch loss ``loss_fn(gen, src_lab, trg_lab) -> (loss, aux)``:
-    augment, synthesise, register, Dice + Grad."""
-    use_zeropad = cfg.zero_borders_maps or cfg.zero_borders_maps_val
-
-    def loss_fn(gen, src_lab, trg_lab):
-        batch = synthesize(gen, src_lab, trg_lab, engine_cfg, cfg, zero_borders)
-        return loss_from_batch(model, batch, engine_cfg, cfg, use_zeropad, pool_tie=pool_tie)
-
-    return loss_fn
-
-
 def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place on the ``.grad`` of ``params``:
     unchanged while the global norm is below ``max_norm``, else scaled to it
@@ -223,25 +256,35 @@ def init_like_flax_(model: VxmDense, seed: int) -> None:
 
 
 class Trainer:
-    """Owns the model, the optimizer, the steps and the checkpoints."""
+    """Owns the mesh, the model (on the mesh's first device, with a copy on
+    each other device of its ``data`` axis), the optimizer, the steps and the
+    checkpoints. Without a ``mesh`` it makes one of ``cfg.num_devices`` of the
+    devices ``device`` offers (``parallel/mesh.py::mesh_devices``: every card
+    for ``cuda``, a list such as ``"cuda:0,cuda:0"``, the CPU repeated);
+    ``num_devices`` None takes the largest count of them that divides the
+    batch (1 on the CPU)."""
 
-    def __init__(self, cfg: TrainConfig, device=None, pool_tie: str = "equal"):
-        if cfg.num_devices is not None and cfg.num_devices > 1:
-            raise NotImplementedError(
-                "num_devices > 1 (data-parallel training) is not ported yet "
-                "(ROADMAP queue 1 item 15)")
+    def __init__(self, cfg: TrainConfig, device=None, pool_tie: str = "equal", mesh=None):
         if pool_tie not in TIES:
             raise ValueError(f"pool_tie must be one of {TIES}, got {pool_tie!r}")
+        if mesh is None:
+            n = cfg.num_devices
+            if n is None:
+                avail = len(mesh_devices(device))
+                n = max(k for k in range(1, avail + 1) if cfg.batch_size % k == 0)
+            devs = mesh_devices(device, n)
+            if n > len(devs):
+                raise ValueError(f"num_devices={n} needs {n} devices, have {len(devs)}")
+            mesh = make_mesh(n, devices=devs)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.home
         self.pool_tie = pool_tie
         self.vxm_cfg = vxm_config_from(cfg)
         self.engine_cfg = engine_config_from(cfg)
         self.model = VxmDense(self.vxm_cfg, device=self.device)
-        self._loss_tr = make_loss_fn(self.model, self.engine_cfg, cfg, cfg.zero_borders_maps,
-                                     pool_tie)
-        self._loss_val = make_loss_fn(self.model, self.engine_cfg, cfg,
-                                      cfg.zero_borders_maps_val, pool_tie)
+        self.replicas = [mesh.devices[r, 0] for r in range(mesh.shape["data"])]
+        self.models = replicate(self.model, self.replicas)
         self.init_state()
 
     # -- state ---------------------------------------------------------------
@@ -274,16 +317,68 @@ class Trainer:
                 torch.as_tensor(np.asarray(trg_idx, np.int64), device=self.device))
 
     # -- steps ---------------------------------------------------------------
+    @torch.no_grad()
+    def _sync_replicas(self) -> None:
+        """Copy the first device's parameters to the other devices' models."""
+        for m in self.models.values():
+            if m is not self.model:
+                for p, q in zip(m.parameters(), self.model.parameters()):
+                    p.copy_(q)
+
+    @torch.no_grad()
+    def _reduce_grads(self, model: VxmDense) -> None:
+        """Add ``model``'s gradients into the first device's and clear them."""
+        if model is self.model:
+            return
+        for p, q in zip(model.parameters(), self.model.parameters()):
+            if p.grad is not None:
+                g = p.grad.to(self.device)
+                q.grad = g if q.grad is None else q.grad.add_(g)
+                p.grad = None
+
+    def shares(self, gen, src, trg, zero_borders: bool):
+        """Draw the batch's randoms on the first device, then yield each
+        replica's ``(model, batch, share)``: its samples built on its device
+        and their share of the batch (the whole batch on the first device
+        when it does not divide by the replicas)."""
+        B = src.shape[0]
+        rows = self.replicas if B % len(self.replicas) == 0 else [self.device]
+        b = B // len(rows)
+        draws = draw_batch(gen, src, trg, self.engine_cfg, self.cfg, zero_borders)
+        parts = [draws_of(draws, slice(r * b, (r + 1) * b), dev) for r, dev in enumerate(rows)]
+        del draws  # each share's draws are freed once its batch is built
+        for dev in rows:
+            yield self.models[dev], build_batch(parts.pop(0), self.engine_cfg), b / B
+
+    def losses(self, shares, backward: bool) -> dict:
+        """Score each ``(model, batch, share)`` of ``shares``; with
+        ``backward`` each loss, weighted by its share, back-propagates and
+        its gradients are summed onto the first device in replica order.
+        Returns the aux scalars, the weighted sums of the replicas'."""
+        self._sync_replicas()
+        use_zeropad = self.cfg.zero_borders_maps or self.cfg.zero_borders_maps_val
+        aux = None
+        for model, batch, share in shares:
+            loss, aux_r = loss_from_batch(model, batch, self.engine_cfg, self.cfg, use_zeropad,
+                                          pool_tie=self.pool_tie)
+            del batch  # what the backward needs, its graph holds
+            if backward:
+                # the float32 flow head's cuDNN backward runs here, outside
+                # the forward's context: keep TF32 off for it too
+                with full_fp32_convs():
+                    (loss * share).backward()
+                self._reduce_grads(model)
+            aux_r = {k: (v * share).to(self.device) for k, v in aux_r.items()}
+            aux = aux_r if aux is None else {k: aux[k] + aux_r[k] for k in aux}
+        return aux
+
     def train_step(self, gen: torch.Generator, src: torch.Tensor, trg: torch.Tensor) -> dict:
         """One optimizer step on the label maps ``src``, ``trg`` ``(B, X, Y,
-        Z)``; returns the aux scalars (tensors on the device)."""
-        self.model.train()
+        Z)`` on the first device; returns the aux scalars (tensors there)."""
+        for m in self.models.values():
+            m.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self._loss_tr(gen, src, trg)
-        # the float32 flow head's cuDNN backward runs here, outside the
-        # forward's context: keep TF32 off for it too
-        with full_fp32_convs():
-            loss.backward()
+        aux = self.losses(self.shares(gen, src, trg, self.cfg.zero_borders_maps), backward=True)
         if self.cfg.grad_clip_norm and self.cfg.grad_clip_norm > 0:
             clip_by_global_norm_(list(self.model.parameters()), self.cfg.grad_clip_norm)
         self.optimizer.step()
@@ -291,8 +386,10 @@ class Trainer:
 
     @torch.no_grad()
     def val_step(self, gen: torch.Generator, src: torch.Tensor, trg: torch.Tensor) -> dict:
-        self.model.eval()
-        return self._loss_val(gen, src, trg)[1]
+        for m in self.models.values():
+            m.eval()
+        return self.losses(self.shares(gen, src, trg, self.cfg.zero_borders_maps_val),
+                           backward=False)
 
     def train_step_banked(self, gen, bank, src_idx, trg_idx) -> dict:
         """:meth:`train_step` on ``bank[src_idx]``, ``bank[trg_idx]``, gathered

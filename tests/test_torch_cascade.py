@@ -120,8 +120,8 @@ def _options(fn):
 @pytest.mark.parametrize("name", ["pair_registration", "bids_registration", "bids_two_steps",
                                   "gen_apply_def_field"])
 def test_cli_flags_are_the_jax_packages(name):
-    """The JAX package's flags without the sharding ones, plus --device."""
-    want = _options(getattr(jcli, name)) - {"--space", "--data-shard"}
+    """The JAX package's flags, the sharding ones among them, plus --device."""
+    want = _options(getattr(jcli, name))
     assert _options(getattr(tcli, name)) == want | {"--device"}
 
 

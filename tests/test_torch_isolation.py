@@ -5,7 +5,8 @@
   * an entry point given no ``device`` runs on the GPU, and without one it
     raises instead of running on the CPU;
   * every setting the port does not run yet raises ``NotImplementedError``
-    naming its ROADMAP item, and those it has ported since run;
+    naming its ROADMAP item, and those it has ported since run (multi-device
+    layouts among them);
   * ``chip_smoke.py`` without a GPU, or without the rest of the repo, exits
     non-zero and prints no result line.
 """
@@ -65,7 +66,9 @@ def test_port_imports_nothing_of_jax():
     files = _port_sources()
     assert len(files) > 15, files
     for new in ("ops/conv_int8.py", "models/quantize.py",  # the int8 route is scanned too
-                "pipeline/batch.py", "pipeline/runner.py", "utils/native.py", "infer/sharded.py"):
+                "pipeline/batch.py", "pipeline/runner.py", "utils/native.py", "infer/sharded.py",
+                "parallel/mesh.py", "parallel/spatial.py", "infer/selftest.py",
+                "tools/dryrun_multichip.py"):
         assert os.path.join(PKG, new) in files, new
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -125,9 +128,10 @@ def test_settings_not_ported_yet_raise(tmp_path):
     # item 12's int8 inference is ported: the model builds and the config loads
     assert tvd.VxmDense(tvd.VxmConfig(quantize="int8"), device="meta").quant_blocks()
     assert tconf.InferenceConfig.from_dict(dict(TINY, quantize="int8")).quantize == "int8"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tconf.InferenceConfig.from_dict(dict(TINY, sharding={"data": 2}))
-    # parsed and validated as in the JAX package before that
+    # item 15's multi-device layouts are ported: the sharded config loads
+    assert tconf.InferenceConfig.from_dict(
+        dict(TINY, sharding={"data": 2, "space": 2})).sharding == {"data": 2, "space": 2}
+    # parsed and validated as in the JAX package
     with pytest.raises(ValueError, match="quantize"):
         tconf.InferenceConfig.from_dict(dict(TINY, quantize="int4"))
     with pytest.raises(ValueError, match="sharding"):
@@ -161,25 +165,30 @@ def test_settings_not_ported_yet_raise(tmp_path):
     with pytest.raises(ValueError, match="subvol_size"):
         tpre.subvol_grid(sub, (64, 64, 8))
 
-    # item 16's batch pipeline is ported on one device; its multi-device
-    # layouts wait for item 15, and its command has no sharding flags
+    # item 16's batch pipeline and item 15's multi-device layouts are ported:
+    # the factory gives a sharded registrar, and the pipeline takes the
+    # layouts and its command the sharding flags (no subjects here)
     from multimodal_registration_torch.__main__ import main as port_main
-    from multimodal_registration_torch.infer.sharded import make_registrar
+    from multimodal_registration_torch.infer.sharded import ShardedRegistrar, make_registrar
     from multimodal_registration_torch.pipeline import run_batch
 
     assert make_registrar(cfg, params, device="cpu").device == torch.device("cpu")
     np.savez(tmp_path / "w.npz", **params_to_jax(params))
     (tmp_path / "cfg.json").write_text(json.dumps(dict(TINY, compute_dtype="float32")))
     for sharding in ({"space": 2}, {"data": 2}, {"data": 2, "space": 2}):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            run_batch(str(tmp_path), str(tmp_path / "out"), str(tmp_path / "w.npz"),
-                      config_path=str(tmp_path / "cfg.json"), sharding=sharding, device="cpu")
+        sharded = make_registrar(tconf.InferenceConfig.from_dict(dict(TINY, sharding=sharding)),
+                                 params, device="cpu")
+        assert isinstance(sharded, ShardedRegistrar)
+        assert sharded.mesh.shape == {"data": 1, "space": 1, **sharding}
+        _, summary = run_batch(str(tmp_path), str(tmp_path / "out"), str(tmp_path / "w.npz"),
+                               config_path=str(tmp_path / "cfg.json"), sharding=sharding,
+                               device="cpu")
+        assert summary["n_subjects"] == 0
     argv = ["pipeline", "--path-data", str(tmp_path), "--path-output", str(tmp_path / "out"),
-            "--model-path", str(tmp_path / "w.npz"), "--device", "cpu"]
+            "--model-path", str(tmp_path / "w.npz"), "--config-path", str(tmp_path / "cfg.json"),
+            "--device", "cpu"]
     for flag in ("--space", "--data-shard"):
-        with pytest.raises(SystemExit) as e:
-            port_main(argv + [flag, "2"])
-        assert e.value.code == 2
+        assert port_main(argv + [flag, "2"]) == 0
 
 
 def _run_smoke(cwd):

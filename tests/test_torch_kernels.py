@@ -794,3 +794,100 @@ def test_f5_float32_model_ignores_the_callers_tf32(cuda_device):
         m = float(want[k].abs().max())
         assert m > 0.1, k
         assert float((got[k].cpu() - want[k]).abs().max()) <= 1e-5 * m, k
+
+
+# ---- multi-GPU (item 15): the slab routes and a data-parallel step ----------
+# The mesh repeats cuda:0 (one card is enough): the slabs and replicas are
+# split and their halos copied as on several cards.
+
+def _slab_layers(block, space, impl=None):
+    from multimodal_registration_torch.parallel.spatial import Slabs
+
+    return Slabs([type("Unet", (), {"enc_0": block})()] * space, impl)
+
+
+@pytest.mark.parametrize("space", [2, 4])
+def test_slab_k1_route_equals_the_unsharded_call(cuda_device, space):
+    """enc_0 of the flagship forward, (1, 160, 160, 192, 2) -> 64 in bf16,
+    over ``space`` X slabs with a halo of 2: K1 once a slab, and the pooled
+    output equal to the unsharded K1 call and to the slabs through K1's plain
+    version within 1 bf16 ulp of its magnitude (each output is one float32
+    sum rounded once; the tolerance of K1's own tests)."""
+    from multimodal_registration_torch.models.unet import ConvBlock
+    from multimodal_registration_torch.parallel.mesh import split_slabs
+
+    block = ConvBlock(2, 64, torch.bfloat16, cuda_device)
+    x = t(rand((1, 160, 160, 192, 2), 91), torch.bfloat16).to(cuda_device)
+    with torch.inference_mode():
+        want = block.forward_pooled(x)
+        before = kernels.CONV3_LRELU_POOL.launches
+        got = torch.cat(_slab_layers(block, space).conv_pooled(
+            "enc_0", split_slabs(x, [cuda_device] * space)), dim=1)
+        assert kernels.CONV3_LRELU_POOL.launches == before + space
+        plain = torch.cat(_slab_layers(block, space, "plain").conv_pooled(
+            "enc_0", split_slabs(x, [cuda_device] * space)), dim=1)
+    assert got.shape == want.shape == plain.shape == (1, 80, 80, 96, 64)
+    tol = bf16_ulp(float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert float((got.float() - plain.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slab_k8_route_equals_the_unsharded_call(cuda_device, dtype):
+    """dec_3 of the published widths in int8, (1, 80, 80, 96, 512) -> 256,
+    over 2 X slabs with a halo of 1: K8 (and its quantize pass) once a slab,
+    its int32 sums exact, so the output equals the unsharded call's and the
+    slabs' through K8's plain version bit for bit."""
+    from multimodal_registration_torch.models.unet import ConvBlock
+    from multimodal_registration_torch.parallel.mesh import split_slabs
+
+    block = ConvBlock(512, 256, dtype, cuda_device, quant="int8")
+    block.amax = 3.0
+    with torch.no_grad():
+        block.conv.weight.normal_(0.0, 0.02)
+    x = t(rand((1, 80, 80, 96, 512), 92), dtype).to(cuda_device)
+    with torch.inference_mode():
+        want = block(x)
+        before = kernels.CONV3_INT8.launches
+        got = torch.cat(_slab_layers(block, 2).conv("enc_0", split_slabs(x, [cuda_device] * 2)),
+                        dim=1)
+        assert kernels.CONV3_INT8.launches == before + 2
+        plain = torch.cat(_slab_layers(block, 2, "plain").conv(
+            "enc_0", split_slabs(x, [cuda_device] * 2)), dim=1)
+    assert torch.equal(got, want)
+    assert torch.equal(got, plain)
+
+
+def test_data_parallel_step_equals_the_one_device_step(cuda_device):
+    """One step of 2 replicas on cuda:0 against the 1-device step (float32,
+    32^3, 4 labels, batch 2): the loss to the JAX package's tolerance; the
+    parameters within rtol 1e-4 / atol 2e-5, all but at most 1e-4 of them
+    (Adam's first step is lr * g / (|g| + eps): where K5's atomic float32
+    sums leave a gradient near eps or its sign uncertain, the step may
+    differ by up to 2 lr). On one card both replicas are one model, so the
+    copy-and-sum of distinct devices is the CPU tests' (``cpu``, ``cpu:0``)."""
+    from multimodal_registration_torch.parallel.mesh import make_mesh
+    from multimodal_registration_torch.train.config import TrainConfig
+    from multimodal_registration_torch.train.trainer import Trainer
+
+    cfg = TrainConfig.from_dict(dict(
+        in_shape=[32, 32, 32], num_labels=4, im_scales=[4, 8], def_scales=[4], vel_res=4.0,
+        bias_res=8.0, batch_size=2, num_devices=2, enc=[16] * 4, dec=[16] * 6,
+        compute_dtype="float32", lr=1e-4))
+    maps = (rand((2, 32, 32, 32), 93, low=0, high=4)).astype("uint8")
+    out = []
+    for n in (2, 1):
+        trainer = Trainer(cfg, mesh=make_mesh(n, devices=[cuda_device] * n))
+        trainer.init_state(seed=7)
+        aux = trainer.train_step(trainer.generator(5), *trainer.put_batch(maps, maps[::-1].copy()))
+        out.append((float(aux["loss"]), {k: (p.detach().clone(), p.grad.clone())
+                                         for k, p in trainer.model.named_parameters()}))
+    (loss, params), (loss1, params1) = out
+    assert abs(loss - loss1) <= 1e-5 + 1e-5 * abs(loss1), (loss, loss1)
+    far = total = 0
+    for k, (p1, g1) in params1.items():
+        p, g = params[k]
+        far += int((~torch.isclose(p, p1, rtol=1e-4, atol=2e-5)).sum())
+        total += p.numel()
+        assert float((p - p1).abs().max()) <= 2 * cfg.lr + 1e-6, k
+    assert far <= 1e-4 * total, (far, total)

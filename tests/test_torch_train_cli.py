@@ -163,8 +163,12 @@ def test_config_cli_and_what_is_not_ported(tmp_path):
     assert TrainConfig().to_dict() == JTrainConfig().to_dict()
     with pytest.raises(ValueError, match="unknown config keys"):
         TrainConfig.from_dict({"nope": 1})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ttr.Trainer(TrainConfig.from_dict(tiny(tmp_path, num_devices=2)), device="cpu")
+    # item 15's data-parallel training is ported: two replicas on the CPU, and
+    # an explicit device list must hold num_devices devices
+    dp_cfg = TrainConfig.from_dict(tiny(tmp_path, num_devices=2))
+    assert ttr.Trainer(dp_cfg, device="cpu").mesh.shape == {"data": 2, "space": 1}
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        ttr.Trainer(dp_cfg, device=["cpu"])
     with pytest.raises(ValueError, match="pool_tie"):
         ttr.Trainer(TrainConfig.from_dict(tiny(tmp_path)), device="cpu", pool_tie="last")
     # the CLI: label maps only, 2-D, through main(); and two steps with tie "first"
