@@ -103,7 +103,19 @@ Phases (any failure exits non-zero):
      10e. data-parallel training at full width (26 labels, batch 2, ``{data:
           2}``): a step against the 1-device step, then ``run_training`` with
           ``num_devices`` 2 for 2 steps;
- 11. the report, and the card's name and power limit.
+ 11. the bench, budget 90 s:
+     11a. ``bench_torch.py`` with its default flags, in a process of its own:
+          exit code 0 and exactly three JSON lines on stdout, infer256 bf16,
+          infer256 int8, train64 (``bench.py``'s metric names, keys and
+          order), each value > 0; its launches (K1 x1, K2 x5, K3 x1 a
+          forward, K8 x9 in int8); then the kernels at its 192^3 shapes and
+          its three models through them, against their plain versions;
+     11b. the w256 checkpoint in int8 (lazily calibrated on the first pair)
+          against bf16 on three held-out pairs at 160x160x192, 26 labels
+          (``tools/learn_check.py``): int8's Dice at most 0.005 and its NMI
+          at most 0.002 below bf16's (the JAX package's gate,
+          ``benchmarks/quantize_quality_probe.py``), and the flow agreement;
+ 12. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -2466,6 +2478,266 @@ def multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     return counts, numbers
 
 
+PHASE11_BUDGET_S = 90  # of the script's 1200 s
+BENCH_SHAPE = (192, 192, 192)  # bench.py:36
+# bench_torch.py's lines with no --arch, in this order (bench.py:199-204)
+BENCH_SPECS = (("infer256", "", "registered_192cube_enc256_pairs_per_sec"),
+               ("infer256", "int8", "registered_192cube_enc256_pairs_per_sec_int8"),
+               ("train64", "", "registered_192cube_vol_pairs_per_sec"))
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+# the JAX package's adoption gate of int8 (benchmarks/quantize_quality_probe.py:
+# 142-145): int8's held-out Dice and NMI at most this far below bf16's
+INT8_DICE_GAP, INT8_NMI_GAP = 0.005, 0.002
+
+
+def bench_run(rehearsal):
+    """11a's run of ``bench_torch.py`` with its default flags: on the card a
+    process of its own, through its argv and stdout; in the rehearsal its
+    ``main`` at 16^3, one block of one forward. Returns the exit code, the
+    standard output and the standard error."""
+    if not rehearsal:
+        r = subprocess.run([sys.executable, os.path.join(HERE, "bench_torch.py")], cwd=HERE,
+                           capture_output=True, text=True, timeout=PHASE11_BUDGET_S)
+        return r.returncode, r.stdout, r.stderr
+    import contextlib
+    import io
+
+    import bench_torch
+
+    out, err = io.StringIO(), io.StringIO()
+    saved, bench_torch.SHAPE = bench_torch.SHAPE, (16, 16, 16)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench_torch.main(["--device", "cpu", "--iters", "1", "--blocks", "1"])
+    finally:
+        bench_torch.SHAPE = saved
+    return rc, out.getvalue(), err.getvalue()
+
+
+def bench_kernels_vs_plain(dev, rehearsal):
+    """11a: the kernels at the shapes the bench gives them, against their
+    plain versions (phase 2's tolerances): K1 on (1, 192^3, 2) to 64 and to
+    256 channels, K2's fused step on the 96^3 field (exact), K3 writing 192^3
+    from 96^3, K8 at 96^3, 256 and 512 to 256 (exact); then each of the
+    bench's three models through the kernels against the same through their
+    plain versions on a synthetic 192^3 pair (phase 3's limits)."""
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from multimodal_registration_torch.ops.conv_pool import conv3_lrelu_pool
+    from multimodal_registration_torch.ops.warp import self_warp_add_batch, warp_up2x_batch
+
+    shape = (16, 16, 16) if rehearsal else BENCH_SHAPE
+    half = tuple(s // 2 for s in shape)
+    rng = np.random.default_rng(111)
+    errs = {}
+    x = torch.as_tensor(rng.normal(size=(1, *shape, 2)).astype(np.float32), device=dev).bfloat16()
+    for cout in (64, 256):
+        w = torch.as_tensor(rng.normal(scale=0.2, size=(cout, 2, 3, 3, 3)).astype(np.float32),
+                            device=dev)
+        b = torch.as_tensor(rng.normal(scale=0.1, size=(cout,)).astype(np.float32), device=dev)
+        with torch.inference_mode():
+            p = conv3_lrelu_pool(x, w, b, impl="plain")
+            errs[f"K1 -> {cout}"] = compare(
+                f"11a K1 conv3_lrelu_pool {tuple(x.shape)} -> {cout} (tol 1 bf16 ulp of max|out|)",
+                conv3_lrelu_pool(x, w, b), p, bf16_ulp(float(p.float().abs().max())))
+        del p
+    del x
+    phi = smooth_field(half, 3.0, 112, dev)
+    with torch.inference_mode():
+        errs["K2 fused"] = compare(
+            f"11a K2 self_warp_add bf16 payload, {tuple(phi.shape)}",
+            self_warp_add_batch(phi, torch.bfloat16),
+            self_warp_add_batch(phi, torch.bfloat16, impl="plain"), 0.0, exact=True)
+        img = torch.as_tensor(rng.random((1, *shape, 1)).astype(np.float32), device=dev)
+        errs["K3"] = compare(f"11a K3 warp_up2x f32, {tuple(img.shape)} from {tuple(phi.shape)}",
+                             warp_up2x_batch(img, phi), warp_up2x_batch(img, phi, impl="plain"),
+                             1e-5)
+    del phi, img
+    for cin in (256, 512):
+        errs[f"K8 {cin} -> 256"] = k8_check(f"11a, {cin} -> 256", *k8_inputs(dev, (1, *half), cin,
+                                                                            256, 113 + cin))
+    fx_np, mov_np = synthetic_pair(shape)
+    mov_t = torch.as_tensor(mov_np, device=dev)[None, ..., None]
+    fx_t = torch.as_tensor(fx_np, device=dev)[None, ..., None]
+    for arch, quantize, metric in BENCH_SPECS:
+        model = bench_torch.bench_model(arch, quantize, shape, 1, dev)
+        with torch.inference_mode():
+            out_k = model(mov_t, fx_t)
+            out_p = model(mov_t, fx_t, impl="plain")
+        check(all(bool(torch.isfinite(out_k[k]).all()) for k in ("moved", "warp")),
+              f"11a {metric}: the forward is not finite")
+        check(tuple(out_k["warp"].shape) == (1, *half, 3), f"11a {metric}: warp's shape")
+        d_warp = float((out_k["warp"] - out_p["warp"]).abs().max())
+        d_moved = float((out_k["moved"] - out_p["moved"]).abs().max())
+        print(f"#   11a {metric} model on a synthetic {shape} pair, kernels vs plain: warp "
+              f"{d_warp:.3e} voxel (tol 0.1), moved {d_moved:.3e} (tol 0.05); max|warp| "
+              f"{float(out_p['warp'].abs().max()):.3f}", flush=True)
+        check(d_warp <= 0.1 and d_moved <= 0.05, f"11a {metric}: the kernel forward disagrees "
+              "with the plain forward")
+        errs[f"{metric} warp"], errs[f"{metric} moved"] = d_warp, d_moved
+        del model, out_k, out_p
+    return errs
+
+
+def int8_quality(dev, rehearsal):
+    """11b: the w256 checkpoint in bf16 and in int8 on three held-out pairs
+    (``tools/learn_check.py``: three maps of its bank at 160x160x192, 26
+    labels, made on the device, two syntheses each), Dice (labels warped
+    by K2 nearest) and NMI from ``learn_check.evaluate``, under the JAX
+    package's gate. The int8 arm starts without scales: a ``Registrar``
+    calibrates them on the first pair it predicts, as every entry point
+    does. The rehearsal runs a random init of width 64 at 16^3, ungated."""
+    import numpy as np
+    import torch
+
+    from multimodal_registration_torch.infer.config import InferenceConfig
+    from multimodal_registration_torch.infer.register import (
+        Registrar, load_params_any, vxm_config_from)
+    from multimodal_registration_torch.models.vxm_dense import VxmDense
+    from multimodal_registration_torch.tools import learn_check as lc
+    from multimodal_registration_torch.train.trainer import engine_config_from, init_like_flax_
+
+    labels = 26
+    shape = (16, 16, 16) if rehearsal else (160, 160, 192)
+    with open(os.path.join(HERE, "config", "config_inference.json")) as f:
+        settings = json.load(f)
+    if rehearsal:
+        settings = dict(settings, enc=[64] * 4, dec=[64] * 6)
+    cfg = InferenceConfig.from_dict(settings)
+    cfg8 = InferenceConfig.from_dict(dict(settings, quantize="int8"))
+    if rehearsal:
+        model = VxmDense(vxm_config_from(cfg), device="cpu")
+        init_like_flax_(model, 0)
+        params = model.state_dict()
+    else:
+        params = load_params_any(W256_CKPT, cfg)
+    tcfg = lc.check_config(shape, labels, warm=True)
+    pairs = lc.held_out_pairs(lc.map_bank(tcfg, dev, num_maps=lc.NUM_PAIRS),
+                              engine_config_from(tcfg),
+                              torch.Generator(device=dev).manual_seed(lc.SEED_PAIRS), dev)
+    base = lc.identity(pairs, labels)
+    regs = {"bf16": Registrar(cfg, params, device=dev), "int8": Registrar(cfg8, params, device=dev)}
+    mov0, _, fx0, _ = pairs[0]
+    regs["int8"].predict_tensors(mov0[None], fx0[None])  # the lazy calibration on pair 0
+    scales = regs["int8"].quant_scales
+    check(scales is not None and len(scales) == 9, f"11b: the lazy calibration gave {scales}")
+    arms, flows = {}, {}
+    for name, reg in regs.items():
+        per = [lc.evaluate(reg.model, [p], labels) for p in pairs]
+        with torch.inference_mode():
+            flows[name] = [reg.model(m[None, ..., None], f[None, ..., None])["flow_fullres"][0]
+                           for m, _, f, _ in pairs]
+        arms[name] = {"dice": float(np.mean([e["dice"] for e in per])),
+                      "nmi": float(np.mean([e["nmi"] for e in per])),
+                      "per_pair_dice": [e["dice"] for e in per],
+                      "per_pair_nmi": [e["nmi"] for e in per]}
+    diffs = [(a - b).abs() for a, b in zip(flows["bf16"], flows["int8"])]
+    agree = {"max": float(max(float(d.max()) for d in diffs)),
+             "mean": float(np.mean([float(d.mean()) for d in diffs]))}
+    gap = {"dice": arms["bf16"]["dice"] - arms["int8"]["dice"],
+           "nmi": arms["bf16"]["nmi"] - arms["int8"]["nmi"]}
+    with open(os.path.join(HERE, "benchmarks", "quantize_quality_results.json")) as f:
+        jax_ref = json.load(f)
+    print(f"#   11b: identity Dice {base['dice']:.4f}, NMI {base['nmi']:.4f} ({shape}, {labels} "
+          f"labels, {len(pairs)} held-out pairs)")
+    for name, arm in arms.items():
+        print(f"#   11b {name}: Dice {arm['dice']:.4f} (pairs "
+              f"{', '.join(f'{d:.4f}' for d in arm['per_pair_dice'])}), NMI {arm['nmi']:.4f} "
+              f"(pairs {', '.join(f'{n:.4f}' for n in arm['per_pair_nmi'])}); the JAX package on "
+              f"its pairs: Dice {jax_ref['arms'][name]['dice']}, NMI {jax_ref['arms'][name]['nmi']}")
+    print(f"#   11b gate: int8 Dice {gap['dice']:+.4f} below bf16 (at most {INT8_DICE_GAP}), NMI "
+          f"{gap['nmi']:+.4f} below (at most {INT8_NMI_GAP}); the JAX package: "
+          f"{jax_ref['gate']['dice_gap']}, {jax_ref['gate']['nmi_gap']}")
+    print(f"#   11b flow agreement int8 vs bf16 (full res): max {agree['max']:.4f}, mean "
+          f"{agree['mean']:.5f} voxel; the JAX package: max {jax_ref['flow_agreement_vox']['max']}, "
+          f"mean {jax_ref['flow_agreement_vox']['mean']}", flush=True)
+    if not rehearsal:
+        check(gap["dice"] <= INT8_DICE_GAP and gap["nmi"] <= INT8_NMI_GAP,
+              f"11b: int8 fails the JAX package's quality gate: {gap}")
+    return {"identity": base, "arms": arms, "gap": gap, "flow_agreement_vox": agree,
+            "scales": {k: float(v) for k, v in scales.items()}}
+
+
+def bench_phase(dev, rehearsal):
+    """Phase 11: 11a ``bench_torch.py`` with its default flags (its three
+    lines at 192^3: the contract of ``bench.py``), its kernels against their
+    plain versions at its shapes; 11b int8 held to the JAX package's quality
+    gate against bf16. Returns the launch counts of each (11a's from the
+    bench's own process: every forward of its three lines) and the phase's
+    numbers."""
+    import re
+
+    import torch
+
+    from multimodal_registration_torch import kernels
+
+    t_phase = time.perf_counter()
+    counts, numbers = {}, {}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the bench's process shares the card
+    print("# phase 11a: bench_torch.py with its default flags (infer256 bf16, infer256 int8, "
+          f"train64; {'16^3 on the CPU' if rehearsal else f'{BENCH_SHAPE}, its own process'})",
+          flush=True)
+    rc, stdout, stderr = bench_run(rehearsal)
+    for line in stderr.splitlines():
+        if line.startswith("#"):
+            print(f"#   bench: {line[1:].strip()}")
+    check(rc == 0, f"11a: bench_torch.py exited with {rc}: {stderr[-3000:]}")
+    out = stdout.splitlines()
+    check(len(out) == len(BENCH_SPECS), f"11a: bench_torch.py printed {len(out)} lines: {stdout!r}")
+    lines = []
+    for text, (_, _, metric) in zip(out, BENCH_SPECS):
+        try:
+            line = json.loads(text)
+        except ValueError:
+            fail(f"11a: not a JSON line: {text!r}")
+        print(f"#   11a line: {text}")
+        check(isinstance(line, dict) and list(line) == BENCH_KEYS and line["metric"] == metric
+              and line["unit"] == "pairs/s" and math.isfinite(line["value"]) and line["value"] > 0
+              and isinstance(line["vs_baseline"], (int, float)),
+              f"11a: want {metric} with keys {BENCH_KEYS}, unit pairs/s and a value > 0: {line}")
+        lines.append(line)
+    per_forward = [json.loads(m) for m in re.findall(r"^# launches per forward: (\{.*\})$",
+                                                     stderr, re.M)]
+    in_all = [json.loads(m) for m in re.findall(r"^# launches in all: (\{.*\})$", stderr, re.M)]
+    best = [tuple(map(float, m)) for m in re.findall(
+        r"^# best ([0-9.]+) ms/forward, peak memory ([0-9.]+) MiB$", stderr, re.M)]
+    check(len(per_forward) == len(in_all) == len(BENCH_SPECS),
+          f"11a: the bench's stderr lacks its launch counts: {stderr[-2000:]}")
+    counts["11a"] = {k: sum(c[k] for c in in_all) for k in in_all[0]}
+    if not rehearsal:
+        check(len(best) == len(BENCH_SPECS), "11a: the bench's stderr lacks its best times")
+        for (arch, quantize, metric), got in zip(BENCH_SPECS, per_forward):
+            want = dict.fromkeys(got, 0)
+            want.update(conv3_lrelu_pool=1, warp_trilinear=5, warp_up2x=1,
+                        conv3_int8=9 if quantize else 0)
+            check(got == want, f"11a {metric}: a forward launched {got}, want {want}")
+    numbers["11a"] = {
+        "lines": lines, "per_forward_launches": per_forward,
+        "best_ms": [b[0] for b in best], "peak_mib": [b[1] for b in best],
+        "blocks_ms": [float(v) for v in re.findall(r"^# block \d+: ([0-9.]+) ms/iter$", stderr,
+                                                   re.M)],
+        "bench_s": time.perf_counter() - t_phase}
+    numbers["11a"]["kernels_vs_plain"] = bench_kernels_vs_plain(dev, rehearsal)
+    numbers["11a_s"] = time.perf_counter() - t_phase
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print("# phase 11b: int8 against bf16 on held-out pairs under the JAX package's quality gate "
+          "(Dice within 0.005, NMI within 0.002)", flush=True)
+    kernels.reset_launch_counts()
+    numbers["11b"] = int8_quality(dev, rehearsal)
+    counts["11b"] = kernels.launch_counts()
+    launched("11b", counts["11b"], names=SERVING + ("conv3_int8",), rehearsal=rehearsal)
+    numbers["total_s"] = time.perf_counter() - t_phase
+    print(f"#   phase 11: {numbers['total_s']:.1f} s of its budget of {PHASE11_BUDGET_S} s "
+          f"(11a {numbers['11a_s']:.1f} s, the bench's process "
+          f"{numbers['11a']['bench_s']:.1f} s)", flush=True)
+    return counts, numbers
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -2801,7 +3073,12 @@ def main() -> None:
         multi_launches, multi_numbers = multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, td)
     print(f"#   phase 10 numbers: {json.dumps(multi_numbers)}")
 
-    # ---- 11. report ----------------------------------------------------------
+    # ---- 11. the bench at 192^3, int8 under the quality gate --------------------
+    clear_scratch()
+    bench_launches, bench_numbers = bench_phase(dev, rehearsal)
+    print(f"#   phase 11 numbers: {json.dumps(bench_numbers)}")
+
+    # ---- 12. report ----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
     # before it: register() for K1-K3, run_training() for K4-K7, register()
     # with the published config in int8 (7d) for K8
@@ -2822,6 +3099,7 @@ def main() -> None:
             **{f"launches_{phase}": n[k.name] for phase, n in pipe_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in learn_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in multi_launches.items()},
+            **{f"launches_{phase}": n[k.name] for phase, n in bench_launches.items()},
             "max_abs_err": results[k.name]["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
@@ -2856,7 +3134,12 @@ def main() -> None:
           f"sharded_forward_ms {multi_numbers['10a']['sharded_ms']:.4f} "
           f"dp_step_s {multi_numbers['10e']['step_s']:.4f} "
           f"dp_step_1dev_s {multi_numbers['10e']['step_1dev_s']:.4f} "
-          f"phase10_s {multi_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
+          f"phase10_s {multi_numbers['total_s']:.1f} "
+          + " ".join(f"bench_{metric} {line['value']}" for (_, _, metric), line
+                     in zip(BENCH_SPECS, bench_numbers['11a']['lines']))
+          + f" int8_dice_gap {bench_numbers['11b']['gap']['dice']:.4f} "
+          f"int8_nmi_gap {bench_numbers['11b']['gap']['nmi']:.4f} "
+          f"phase11_s {bench_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

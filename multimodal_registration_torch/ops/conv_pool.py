@@ -95,6 +95,7 @@ def window_row_order() -> torch.Tensor:
 
 # (data_ptr, _version) of w and b, compute type, device, stream -> (w, b, matrix, bias)
 _PREPARED: dict = {}
+_PREPARED_MAX = 8  # a device's
 
 
 def prepared_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
@@ -106,8 +107,9 @@ def prepared_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
     the tensor's ``_version`` and so misses the cache; a write through
     ``.data`` does not and must not be used on cached weights. An entry keeps
     its ``w`` and ``b`` alive, so their memory cannot be handed to other
-    tensors that would then match the key; the cache holds at most 8 entries
-    and drops the oldest first. The current stream of a card is part of the
+    tensors that would then match the key; each device holds at most
+    ``_PREPARED_MAX`` entries, its oldest going first, so a mesh of several
+    cards keeps every card's. The current stream of a card is part of the
     key: the operands are made on it, and a launch on another stream would not
     be ordered behind that. Tensors made under ``torch.inference_mode``
     track no version and are prepared anew on every call."""
@@ -126,8 +128,9 @@ def prepared_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
                 wk = w.float().permute(2, 3, 4, 1, 0).reshape(27 * cin, cout).contiguous()
             entry = (w, b, wk, b.float().contiguous())
         if key is not None:
-            if len(_PREPARED) >= 8:
-                del _PREPARED[next(iter(_PREPARED))]
+            mine = [k for k in _PREPARED if k[5] == w.device]
+            if len(mine) >= _PREPARED_MAX:
+                del _PREPARED[mine[0]]
             _PREPARED[key] = entry
     return entry[2], entry[3]
 

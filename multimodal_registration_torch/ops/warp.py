@@ -119,20 +119,24 @@ def needs_grad(*tensors) -> bool:
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
-# (device index, stream, numel) -> [float32 zeros, in use]: K5's sums
+# (device, stream, numel) -> [float32 zeros, in use]: K5's sums
 _SCRATCH: dict = {}
+_SCRATCH_MAX = 8  # a device's: the shapes of a run are few; drop the oldest, do not hoard
 
 
 def _scratch(like: torch.Tensor, numel: int) -> list:
     """The zeroed float32 scratch buffer of ``numel`` values for K5 on
     ``like``'s device and current stream, marked in use. The caller clears
     the mark once the kernel that zeroes the buffer again is enqueued; a
-    buffer found marked was left dirty by a failed backward and is zeroed."""
-    key = (like.device.index, kernels.stream_of(like), numel)
+    buffer found marked was left dirty by a failed backward and is zeroed.
+    Each device holds at most ``_SCRATCH_MAX`` buffers, its oldest going
+    first."""
+    key = (like.device, kernels.stream_of(like), numel)
     entry = _SCRATCH.get(key)
     if entry is None:
-        if len(_SCRATCH) >= 8:  # shapes of a run are few; drop the oldest, do not hoard
-            del _SCRATCH[next(iter(_SCRATCH))]
+        mine = [k for k in _SCRATCH if k[0] == like.device]
+        if len(mine) >= _SCRATCH_MAX:
+            del _SCRATCH[mine[0]]
         entry = _SCRATCH[key] = [torch.zeros(numel, dtype=torch.float32, device=like.device),
                                  False]
     elif entry[1]:

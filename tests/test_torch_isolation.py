@@ -1,7 +1,8 @@
 """The port stands alone and fails loudly.
 
-  * no module of ``multimodal_registration_torch`` and not ``chip_smoke.py``
-    imports JAX or anything of the JAX package (an AST scan);
+  * no module of ``multimodal_registration_torch``, not ``chip_smoke.py`` and
+    not ``bench_torch.py`` imports JAX, anything of the JAX package or of
+    ``benchmarks/`` (an AST scan);
   * an entry point given no ``device`` runs on the GPU, and without one it
     raises instead of running on the CPU;
   * every setting the port does not run yet raises ``NotImplementedError``
@@ -36,12 +37,13 @@ from _torch_port import synthetic_pair, write_keras_h5
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "multimodal_registration_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "multimodal_registration_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "multimodal_registration_tpu",
+             "benchmarks")
 TINY = dict(enc=[4] * 4, dec=[4] * 6)
 
 
 def _port_sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "bench_torch.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

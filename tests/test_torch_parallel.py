@@ -217,6 +217,64 @@ def test_k8_weight_cache_keeps_each_devices_entries():
         tci._PREPARED.update(saved)
 
 
+def test_k1_weight_cache_keeps_each_devices_entries():
+    """K1's prepared weights, as K8's: a full cache of another device's
+    entries (``cpu:0``, which the mesh counts apart from ``cpu``) pushes out
+    none of this device's, and each device keeps its ``_PREPARED_MAX`` newest."""
+    from multimodal_registration_torch.ops import conv_pool as tcp
+
+    other = torch.device("cpu", 0)
+    saved = dict(tcp._PREPARED)
+    tcp._PREPARED.clear()
+    try:
+        for i in range(tcp._PREPARED_MAX):
+            tcp._PREPARED[(i, 0, i, 0, torch.float32, other, 0, (4, 2, 3, 3, 3))] = None
+        rng = np.random.default_rng(6)
+        keep = [(torch.tensor(rng.normal(size=(4, 2, 3, 3, 3)), dtype=torch.float32),
+                 torch.zeros(4)) for _ in range(tcp._PREPARED_MAX + 3)]
+        for w, b in keep:
+            tcp.prepared_weights(w, b, torch.float32)
+        on = {d: sum(k[5] == d for k in tcp._PREPARED) for d in (other, torch.device("cpu"))}
+        assert on == {other: tcp._PREPARED_MAX, torch.device("cpu"): tcp._PREPARED_MAX}
+        w, b = keep[-1]  # the newest are kept: prepared once
+        assert (tcp.prepared_weights(w, b, torch.float32)[0]
+                is tcp.prepared_weights(w, b, torch.float32)[0])
+        w, b = keep[0]  # the oldest went first
+        assert all(k[0] != w.data_ptr() for k in tcp._PREPARED)
+    finally:
+        tcp._PREPARED.clear()
+        tcp._PREPARED.update(saved)
+
+
+def test_k5_scratch_cache_keeps_each_devices_buffers(monkeypatch):
+    """K5's scratch buffers: keyed on the device itself (``cpu`` and ``cpu:0``
+    are two, as ``cuda:0`` and ``cpu:0`` are), at most ``_SCRATCH_MAX`` a
+    device, the oldest going first."""
+    from multimodal_registration_torch.ops import warp as tw
+
+    monkeypatch.setattr(tw.kernels, "stream_of", lambda t: 0)
+    other = torch.device("cpu", 0)
+    saved = dict(tw._SCRATCH)
+    tw._SCRATCH.clear()
+    try:
+        for n in range(1, tw._SCRATCH_MAX + 1):
+            tw._SCRATCH[(other, 0, n)] = [None, False]
+        like = torch.zeros(1)
+        sizes = range(100, 100 + tw._SCRATCH_MAX + 3)
+        for n in sizes:
+            entry = tw._scratch(like, n)
+            entry[1] = False  # the finishing kernel was enqueued
+        on = {d: sum(k[0] == d for k in tw._SCRATCH) for d in (other, like.device)}
+        assert on == {other: tw._SCRATCH_MAX, like.device: tw._SCRATCH_MAX}
+        newest = tw._scratch(like, sizes[-1])  # kept: the same buffer
+        assert newest is tw._SCRATCH[(like.device, 0, sizes[-1])] and newest[0].numel() == sizes[-1]
+        newest[1] = False
+        assert (like.device, 0, sizes[0]) not in tw._SCRATCH  # the oldest went first
+    finally:
+        tw._SCRATCH.clear()
+        tw._SCRATCH.update(saved)
+
+
 def test_slab_k1_and_conv_routes_match_the_whole_volume_at_a_ragged_x():
     """enc_0 on K1 (here its plain version, as on every CPU tensor) with a
     halo of 2, and a 3^3 conv with a halo of 1, over three slabs of a volume
