@@ -8,9 +8,10 @@ Phases (any failure exits non-zero):
   1. build the hand-written kernels (csrc/*.cu, one nvcc each, in parallel);
   2. hold each of the eight kernels against its plain PyTorch version on the
      card, at the shapes of the flagship forward and of a training step (K1
-     also at a ragged shape with batch 2, at 256 output channels and in
-     float32; K8, the int8 conv, at a ragged shape here and at the published
-     widths' shapes in phase 7; K2 and K5 also through their fused squaring step: forward exact,
+     also at a ragged shape with batch 2, at 256 output channels, in float32
+     and, F12, the w256 first level at 192^3 with batch 2; K8, the int8
+     conv, at a ragged shape here and at the published widths' shapes in
+     phase 7; K2 and K5 also through their fused squaring step: forward exact,
      backward, the 5-step integration and its device launches), and check that
      the inference-only kernels refuse to be differentiated;
   3. the flagship forward (VxmDense enc [64]x4 / dec [64]x6, int_steps 5,
@@ -115,7 +116,21 @@ Phases (any failure exits non-zero):
           (``tools/learn_check.py``): int8's Dice at most 0.005 and its NMI
           at most 0.002 below bf16's (the JAX package's gate,
           ``benchmarks/quantize_quality_probe.py``), and the flow agreement;
- 12. the report, and the card's name and power limit.
+ 12. the pipeline's registration quality on held-out synthetic subjects
+     (``tools/pipeline_quality.py``), budget 240 s:
+     12a. ``run_batch`` with ``--opt-affine`` (min SC-Dice 80) on three
+          subjects of new label maps (160x160x192, 26 labels, a brightened
+          "cord" label) in three arms: ``learned_ref``, the w256 checkpoint
+          in bf16 and in int8 (the in-repo sidecar); K1, K2, K3 (K8 in int8)
+          launched in each arm; sub-01 again through the plain versions
+          (phase 3's limits, the gate's folding); gates: SC-Dice after
+          >= 0.80, NMI gain > 0 and folding <= 0.1 % for every subject, no
+          fallback, int8's mean within 0.005 of bf16's;
+     12b. a second tree with the moving contrast rigidly displaced, in five
+          arms (single, opt_affine, opt_affine_rigid, two_step,
+          two_step_smooth): the cascade above the single model, its
+          smoothed folding at most its raw folding;
+ 13. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -2738,6 +2753,129 @@ def bench_phase(dev, rehearsal):
     return counts, numbers
 
 
+PHASE12_BUDGET_S = 240  # of the script's 1200 s
+
+
+def quality_phase(dev, rehearsal, tmp):
+    """Phase 12: the batch pipeline's registration quality on held-out
+    synthetic subjects (``tools/pipeline_quality.py``, the port's
+    ``benchmarks/pipeline_parity_run.py`` and ``twostep_parity_run.py``): 12a
+    the three pipeline arms (``learned_ref``, w256 bf16, w256 int8 with the
+    in-repo sidecar) on the tree of maps seed 777, 12b the five two-step
+    arms on the tree of maps seed 888 with the moving contrast rigidly
+    displaced. Every arm launched K1, K2 and K3 (K8 in int8) and each
+    synthesis K6; sub-01 of 12a's ``learned_ref`` arm is registered again
+    through the plain versions (phase 3's limits against the pipeline's
+    field and moved image, and the gate's folding on the plain field); the
+    tool's gates hold. The rehearsal runs the tool's ``--quick`` (48^3, tiny
+    models that do not register) and holds no gate. Returns the launch
+    counts of 12a and 12b and the phase's numbers."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.evalx.jacobian import folding_summary
+    from multimodal_registration_torch.infer.config import InferenceConfig
+    from multimodal_registration_torch.infer.register import Registrar, load_params_any, register
+    from multimodal_registration_torch.tools import pipeline_quality as pq
+    from multimodal_registration_torch.utils import nifti
+
+    t_phase = time.perf_counter()
+    counts, numbers = {}, {}
+    n_subjects = 2 if rehearsal else 3
+    snapshot = {p: (open(p, "rb").read() if p.endswith(".json") else os.path.getmtime(p))
+                for p in glob.glob(os.path.join(HERE, "benchmarks", "*"))}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    def arms_launched(label, part):
+        launched(f"{label} synthesis", part["synthesis"]["launches"],
+                 names=("warp_labels_soft_hard",), rehearsal=rehearsal)
+        for name, arm in part["arms"].items():
+            launched(f"{label} {name}", arm["launches"], rehearsal=rehearsal,
+                     names=SERVING + (("conv3_int8",) if name.endswith("int8") else ()))
+
+    print(f"# phase 12a: run_batch (--opt-affine, min_sc_dice {pq.MIN_SC_DICE}) in the arms "
+          f"{pq.PIPELINE_ARMS} on {n_subjects} held-out subjects (maps seed "
+          f"{pq.PIPELINE_MAPS_SEED}){', --quick' if rehearsal else ''}", flush=True)
+    kernels.reset_launch_counts()
+    part_a = pq.pipeline_arms(os.path.join(tmp, "12a"), dev, quick=rehearsal,
+                              n_subjects=n_subjects)
+    counts["12a"] = kernels.launch_counts()
+    numbers["12a_s"] = time.perf_counter() - t_phase
+    arms_launched("12a", part_a)
+
+    # sub-01 of the learned_ref arm through the plain versions
+    arm = part_a["arms"]["learned_ref"]
+    sub = part_a["subjects"][0]
+    cfg = InferenceConfig.from_dict(arm["config"])
+    reg_p = Registrar(cfg, load_params_any(arm["model_path"], cfg), device=dev, impl="plain")
+    pdir = os.path.join(tmp, "12a_plain")
+    os.makedirs(pdir)
+    for c in ("T2w", "T1w"):
+        shutil.copy(os.path.join(tmp, "12a", "data", sub, "anat", f"{sub}_{c}.nii.gz"), pdir)
+    t0 = time.perf_counter()
+    out_p = register(cfg, reg_p, os.path.join(pdir, f"{sub}_T2w.nii.gz"),
+                     os.path.join(pdir, f"{sub}_T1w.nii.gz"), fx_contrast="T2w")
+    plain_s = time.perf_counter() - t0
+    work = os.path.join(tmp, "12a", "out_learned_ref", "data_processed", sub)
+    d = {}
+    for k, name in (("warp", f"{sub}_T1w_proc_field_to_T2w.nii.gz"),
+                    ("moved", f"{sub}_T1w_proc_reg_to_T2w.nii.gz")):
+        found = sorted(glob.glob(os.path.join(work, "*", name)))
+        check(bool(found), f"12a: the pipeline wrote no {name} for {sub}")
+        a = nifti.load(found[0]).get_fdata()
+        d[k] = float(np.abs(a - nifti.load(os.path.join(pdir, name)).get_fdata()).max())
+    folding = folding_summary(out_p["warp"], device=dev)["percentage_negative_detJa"]
+    kernel_folding = arm["summary"]["folding_percent"][0]
+    numbers["12a_plain"] = {"subject": sub, **d, "folding_percent_plain": folding,
+                            "folding_percent_kernels": kernel_folding, "register_s": plain_s}
+    print(f"#   12a plain path, {sub} of learned_ref: warp {d['warp']:.3e} voxel (tol 0.1), moved "
+          f"{d['moved']:.3e} (tol 0.05) from the pipeline's; folding {folding:.6f} % on the plain "
+          f"field, {kernel_folding:.6f} % on the kernels' (gate <= {pq.GATE_FOLDING_PERCENT} %); "
+          f"register() {plain_s:.2f} s", flush=True)
+    check(d["warp"] <= 0.1 and d["moved"] <= 0.05, "12a: the pipeline disagrees with the plain path")
+    check(folding <= pq.GATE_FOLDING_PERCENT, "12a: the plain path folds beyond the gate")
+    del reg_p
+
+    t0 = time.perf_counter()
+    print(f"# phase 12b: run_batch in the arms {tuple(pq.TWOSTEP_ARMS)} on {n_subjects} held-out "
+          f"subjects (maps seed {pq.TWOSTEP_MAPS_SEED}), the moving contrast rigidly displaced",
+          flush=True)
+    kernels.reset_launch_counts()
+    part_b = pq.twostep_arms(os.path.join(tmp, "12b"), dev, quick=rehearsal,
+                             n_subjects=n_subjects)
+    counts["12b"] = kernels.launch_counts()
+    numbers["12b_s"] = time.perf_counter() - t0
+    arms_launched("12b", part_b)
+
+    for label, part in (("12a", part_a), ("12b", part_b)):
+        numbers[label] = {
+            "synthesis_s": part["synthesis"]["seconds"],
+            "s_per_subject": {k: a["s_per_subject"] for k, a in part["arms"].items()},
+            "summary": (part["summary"] if label == "12b" else
+                        {k: a["summary"] for k, a in part["arms"].items()}),
+            "fallback": {k: a["used_affine_fallback"] for k, a in part["arms"].items()}}
+        print(f"#   {label} s/subject: {json.dumps(numbers[label]['s_per_subject'])} "
+              f"(synthesis {part['synthesis']['seconds']:.1f} s)", flush=True)
+        print(f"#   {label} summary: {json.dumps(numbers[label]['summary'])}", flush=True)
+    gates = pq.gates(part_a, part_b)
+    numbers["gates"] = gates
+    for name, ok in gates.items():
+        print(f"#   gate {name}: {'held' if ok else 'FAILED'}")
+    if not rehearsal:
+        check(all(gates.values()), f"12: gates failed: {[k for k, ok in gates.items() if not ok]}")
+    after = {p: (open(p, "rb").read() if p.endswith(".json") else os.path.getmtime(p))
+             for p in glob.glob(os.path.join(HERE, "benchmarks", "*"))}
+    check(after == snapshot, "phase 12 changed something under benchmarks/")
+    numbers["total_s"] = time.perf_counter() - t_phase
+    print(f"#   phase 12: {numbers['total_s']:.1f} s of its budget of {PHASE12_BUDGET_S} s "
+          f"(12a {numbers['12a_s']:.1f} s, 12b {numbers['12b_s']:.1f} s)", flush=True)
+    return counts, numbers
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -2800,12 +2938,17 @@ def main() -> None:
     # with batch 2 that no tile divides, and at the published width 256; float32
     # on the float32 units. bf16: 1 bf16 ulp of max|out| (one float32 sum,
     # summed in another order, rounded once); float32: 1e-5
+    # F12: the w256 first level at 192^3 with batch 2 (bench_torch.py --batch 2
+    # --arch infer256), which the old guard refused; its plain version's float32
+    # activation is about 14.5 GB
+    f12 = (2, 16, 16, 16, 2) if rehearsal else (2, 192, 192, 192, 2)
     errs = []
     for label, xs, cout, dt in (
         ("flagship", (1, *shape, 2), 64, torch.bfloat16),
         ("ragged, batch 2", (2, 18, 12, 36, 2), 12, torch.bfloat16),
         ("Cout 256", (1, 20, 24, 40, 2), 256, torch.bfloat16),
         ("float32", (2, 18, 12, 36, 2), 64, torch.float32),
+        ("w256 at 192^3, batch 2 (F12)", f12, 256, torch.bfloat16),
     ):
         x1 = torch.as_tensor(rng.normal(size=xs).astype(np.float32), device=dev).to(dt)
         w1 = torch.as_tensor(rng.normal(scale=0.2, size=(cout, 2, 3, 3, 3)).astype(np.float32),
@@ -2818,6 +2961,8 @@ def main() -> None:
                             conv3_lrelu_pool(x1, w1, b1), p1, tol))
     results["conv3_lrelu_pool"]["max_abs_err"] = errs[0]
     del x1, p1
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the F12 check's plain activation
 
     phi = smooth_field(half, 2.0, 1, dev)
     errs = []
@@ -3078,7 +3223,13 @@ def main() -> None:
     bench_launches, bench_numbers = bench_phase(dev, rehearsal)
     print(f"#   phase 11 numbers: {json.dumps(bench_numbers)}")
 
-    # ---- 12. report ----------------------------------------------------------
+    # ---- 12. pipeline quality on held-out subjects --------------------------------
+    clear_scratch()
+    with tempfile.TemporaryDirectory() as td:
+        quality_launches, quality_numbers = quality_phase(dev, rehearsal, td)
+    print(f"#   phase 12 numbers: {json.dumps(quality_numbers)}")
+
+    # ---- 13. report ----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
     # before it: register() for K1-K3, run_training() for K4-K7, register()
     # with the published config in int8 (7d) for K8
@@ -3100,6 +3251,7 @@ def main() -> None:
             **{f"launches_{phase}": n[k.name] for phase, n in learn_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in multi_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in bench_launches.items()},
+            **{f"launches_{phase}": n[k.name] for phase, n in quality_launches.items()},
             "max_abs_err": results[k.name]["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
@@ -3139,7 +3291,12 @@ def main() -> None:
                      in zip(BENCH_SPECS, bench_numbers['11a']['lines']))
           + f" int8_dice_gap {bench_numbers['11b']['gap']['dice']:.4f} "
           f"int8_nmi_gap {bench_numbers['11b']['gap']['nmi']:.4f} "
-          f"phase11_s {bench_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
+          f"phase11_s {bench_numbers['total_s']:.1f} "
+          + " ".join(f"sc_dice_after_{arm} {statistics.mean(a for _, a in s['dice_before_after']):.4f}"
+                     for arm, s in quality_numbers['12a']['summary'].items()
+                     if s['dice_before_after'])
+          + f" two_step_minus_single {quality_numbers['12b']['summary']['two_step_minus_single']} "
+          f"phase12_s {quality_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

@@ -25,6 +25,8 @@ gradient is needed.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -36,6 +38,10 @@ _SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on Hopper
 _HALO_TC = 10 * 18 * 18  # halo voxels of a block of the tensor-core kernel
 _HALO_SIMT = 6 * 10 * 18  # and of the float32 kernel (csrc/conv_pool.cu)
 _OUT_BUFFERS = 8 * 8 * 72 * 2  # bytes: a 8 x 72 bf16 output buffer per warp
+_TILE_TC = (4, 8, 8)     # pooled outputs of a block: tensor-core kernel
+_TILE_SIMT = (2, 4, 8)   # and float32 kernel, whose NVOX is their product
+_INT_MAX = 2**31 - 1     # the largest C `int`; also the largest gridDim.x
+_GRID_Y_MAX = 65_535     # the largest gridDim.y, which is the batch
 
 
 def conv3_lrelu_pool_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -144,6 +150,33 @@ def _smem_bytes(cin: int, cout: int, dtype: torch.dtype) -> int:
     return 2 * k_pad * cout_pad + 4 * cout_pad + 2 * k_pad + _OUT_BUFFERS + 4 * cp2 * _HALO_TC
 
 
+def _k1_index_fits(B: int, X: int, Y: int, Z: int, Cin: int, Cout: int,
+                   dtype: torch.dtype) -> bool:
+    """Whether K1's kernel for ``dtype`` can take ``x (B, X, Y, Z, Cin)`` and
+    ``Cout``: every index it forms in 32-bit ``int`` (``csrc/conv_pool.cu``)
+    stays below 2**31, and the grid fits. Both kernels take the batch as
+    ``gridDim.y`` and the blocks of a batch element as ``gridDim.x``; both
+    form the batch element's base offset and the pooled output's offsets in 64
+    bits, so neither B nor the output's size is bound otherwise.
+
+    * bfloat16 (``tc::``): a voxel's input offset ``((gx * Y + gy) * Z + gz)
+      * Cin`` within its batch element, the halo index ``v * CP2 + c2``;
+    * float32 (``simt::``): the weight count ``27 * Cin * Cout``, the halo
+      count ``HX * HY * HZ * Cin``, the work items ``NVOX * groups`` (at most
+      ``NVOX * Cout``); it reads the input through 64-bit offsets."""
+    if max(B, X, Y, Z, Cin, Cout) > _INT_MAX or B > _GRID_Y_MAX:
+        return False
+    tile = _TILE_TC if dtype == torch.bfloat16 else _TILE_SIMT
+    blocks = 1
+    for n, p in zip((X // 2, Y // 2, Z // 2), tile):
+        blocks *= -(-n // p)
+    if dtype == torch.bfloat16:
+        products = (X * Y * Z * Cin, _HALO_TC * ((Cin + 1) // 2))
+    else:
+        products = (27 * Cin * Cout, _HALO_SIMT * Cin, math.prod(_TILE_SIMT) * Cout)
+    return blocks <= _INT_MAX and max(products) <= _INT_MAX
+
+
 def conv3_lrelu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      neg_slope: float = 0.2, impl=None) -> torch.Tensor:
     """``maxpool2(leaky_relu(conv3x3x3_SAME(x, w) + b))`` without writing the
@@ -179,7 +212,7 @@ def conv3_lrelu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(
             f"conv3_lrelu_pool: Cin={Cin}, Cout={Cout} in {x.dtype} need {smem} B of "
             f"shared memory, more than the {_SMEM_LIMIT} B a block may use")
-    if B * X * Y * Z * max(Cin, Cout) >= 2**31:
+    if not _k1_index_fits(B, X, Y, Z, Cin, Cout, x.dtype):
         raise ValueError("conv3_lrelu_pool: tensor too large for 32-bit indices")
     if w.device != x.device or b.device != x.device:
         raise ValueError("conv3_lrelu_pool: x, w and b on different devices")

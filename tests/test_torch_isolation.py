@@ -70,7 +70,7 @@ def test_port_imports_nothing_of_jax():
     for new in ("ops/conv_int8.py", "models/quantize.py",  # the int8 route is scanned too
                 "pipeline/batch.py", "pipeline/runner.py", "utils/native.py", "infer/sharded.py",
                 "parallel/mesh.py", "parallel/spatial.py", "infer/selftest.py",
-                "tools/dryrun_multichip.py"):
+                "tools/dryrun_multichip.py", "tools/pipeline_quality.py"):
         assert os.path.join(PKG, new) in files, new
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -116,6 +116,11 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(no_gpu, tmp_path)
             "--one-cpu-tf", "False"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.pair_registration(argv)
+    # the pipeline-quality tool: no --device means the GPU, even for --quick
+    from multimodal_registration_torch.tools import pipeline_quality
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline_quality.main(["--quick", "--out", str(tmp_path / "quality.json")])
     # and with --device cpu it runs and writes the 3d_reg outputs
     out = tcli.pair_registration(argv + ["--device", "cpu"])
     assert out["warp"].shape == (16, 16, 16, 1, 3)

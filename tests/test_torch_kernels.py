@@ -90,6 +90,26 @@ def test_k1_wide_input_takes_the_general_loop_over_k(cuda_device, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
+def test_k1_w256_first_level_at_192_cubed_batch_2(cuda_device):
+    """F12: B * X * Y * Z * Cout = 3.6e9 here, but the bf16 kernel indexes a
+    batch element's input (192^3 x 2 values) in 32 bits and the batch and the
+    output in 64; the guard used to refuse this shape. The plain version's
+    float32 activation is about 14.5 GB."""
+    x = t(rand((2, 192, 192, 192, 2), 24), torch.bfloat16).to(cuda_device)
+    w = t(rand((256, 2, 3, 3, 3), 25, 0.2)).to(cuda_device)
+    b = t(rand((256,), 26)).to(cuda_device)
+    before = kernels.CONV3_LRELU_POOL.launches
+    got = tcp.conv3_lrelu_pool(x, w, b)
+    want = tcp.conv3_lrelu_pool(x, w, b, impl="plain")
+    torch.cuda.synchronize()
+    assert kernels.CONV3_LRELU_POOL.launches == before + 1
+    assert got.shape == (2, 96, 96, 96, 256)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=bf16_ulp(want.float().abs().max()))
+    del want
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 2, 2), (6, 4, 10), (10, 18, 18), (8, 16, 34)])
 def test_k1_constant_one_input_shows_the_zero_padding(cuda_device, dtype, shape):
