@@ -130,7 +130,28 @@ Phases (any failure exits non-zero):
           arms (single, opt_affine, opt_affine_rigid, two_step,
           two_step_smooth): the cascade above the single model, its
           smoothed folding at most its raw folding;
- 13. the report, and the card's name and power limit.
+ 13. the training step's and the pipeline's measurement tools
+     (``multimodal_registration_torch/tools/``), budget 180 s:
+     13a. ``train_bench`` in processes of their own (``--iters 6 --blocks
+          3``): the flagship at batch 1 and 2, enc/dec 256 at batch 1; each
+          step's launches as counted, a finite final loss at most 0.02 above
+          the warm-up step's, the peak memory; the w256 step's fixed batch
+          through the kernels against the plain versions (phase 5's check);
+          K4 at 256 channels on the full grid and each level below against
+          its plain version, exactly, with its time and bound;
+     13b. ``train_breakdown`` and ``train_profile`` (3 steps) for the
+          flagship and enc/dec 256, ``bwd_breakdown``, ``synth_breakdown``
+          and ``train_sol`` at 160x160x192, 26 labels, with their default
+          iterations, ``fwd_breakdown`` at 192^3 for ``train`` and
+          ``infer256``: every measured row finite and positive, every
+          derived row finite, each full step within 25 % of 13a's s/step of
+          its widths, each profile naming K2, K4, K5, K6 and K7;
+     13c. ``roofline`` at 192^3 for the flagship and w256 forwards against
+          phase 11's measured forwards: ``forward_mfu`` = sol_ms_flops /
+          measured ms;
+     13d. ``pipeline_throughput --subjects 4 --configs
+          default,noprefetch,jobs2``: every subject ok, subjects/min;
+ 14. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -266,7 +287,10 @@ def device_time(fn, what=None, n=10):
     the rows are printed. ``(None, None, [])`` without a card. The profiler
     can miss the first device records of a window, so the window is made long
     (about 30 ms of calls) and each operation counts with its mean duration,
-    as often per call as it was seen, rounded."""
+    as often per call as it was seen, rounded. Late in a long run a window
+    has come back with no device record at all (K4 at 256 channels, 14 calls
+    of 2 ms, after phases 1-12): such a window is taken again, up to twice,
+    each time four times as long."""
     import torch
 
     if not torch.cuda.is_available():
@@ -277,7 +301,13 @@ def device_time(fn, what=None, n=10):
     fn()
     torch.cuda.synchronize()
     n = min(1000, max(n, int(0.03 / max(time.perf_counter() - t0, 1e-6))))
-    events, _ = _profiled(fn, n)
+    for attempt in range(3):
+        events, _ = _profiled(fn, n)
+        if events:
+            break
+        print(f"#   the profiler recorded no device time for {what or fn} in {n} calls "
+              f"(window {attempt + 1} of 3)", flush=True)
+        n *= 4
     check(bool(events), f"the profiler recorded no device time for {what or fn}")
     rows = sorted(((_dev_us(e) / e.count / 1e3, max(1, round(e.count / n)), e.key)
                    for e in events), key=lambda r: -r[0] * r[1])
@@ -671,6 +701,26 @@ def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
           f"{timing['warp_labels_bwd']['bound_needed'][0]:.4f} ms by the entries needed")
 
 
+def fixed_batch(trainer, shape):
+    """Two label maps of 8^3 blocks and the batch synthesised from them
+    (no zero borders), with ``trainer``'s flow head scaled far from zero so
+    that every branch of the loss carries signal: ``(maps, batch)``."""
+    import torch
+
+    from multimodal_registration_torch.train.trainer import synthesize
+
+    cfg = trainer.cfg
+    with torch.no_grad():
+        trainer.model.flow.weight.mul_(2000.0)
+    coarse = torch.randint(0, cfg.num_labels, (2, *(max(s // 8, 1) for s in shape)),
+                           generator=trainer.generator(1), device=trainer.device,
+                           dtype=torch.uint8)
+    maps = coarse.repeat_interleave(8, 1).repeat_interleave(8, 2).repeat_interleave(8, 3)
+    maps = maps[:, :shape[0], :shape[1], :shape[2]].contiguous()
+    return maps, synthesize(trainer.generator(2), maps[:1], maps[1:], trainer.engine_cfg, cfg,
+                            False)
+
+
 def fixed_batch_check(label, trainer, batch):
     """One loss and backward of ``trainer``'s model on ``batch`` through the
     kernels and through their plain versions: the loss within 1e-3, each
@@ -716,7 +766,7 @@ def training_phase(dev, shape, timer, rehearsal, tmp):
     from multimodal_registration_torch import kernels
     from multimodal_registration_torch.train.cli import run_training
     from multimodal_registration_torch.train.config import TrainConfig
-    from multimodal_registration_torch.train.trainer import Trainer, synthesize
+    from multimodal_registration_torch.train.trainer import Trainer
 
     width = 64 if not rehearsal else 8
     base = dict(in_shape=list(shape), num_labels=26 if not rehearsal else 6, num_maps=4,
@@ -730,13 +780,7 @@ def training_phase(dev, shape, timer, rehearsal, tmp):
 
     # -- one loss-and-backward on a fixed batch: kernels against plain versions
     trainer = Trainer(cfg, device=dev)
-    with torch.no_grad():  # a flow head far from zero, so that every branch carries signal
-        trainer.model.flow.weight.mul_(2000.0)
-    coarse = torch.randint(0, cfg.num_labels, (2, *(max(s // 8, 1) for s in shape)),
-                           generator=trainer.generator(1), device=dev, dtype=torch.uint8)
-    maps = coarse.repeat_interleave(8, 1).repeat_interleave(8, 2).repeat_interleave(8, 3)
-    maps = maps[:, :shape[0], :shape[1], :shape[2]].contiguous()
-    batch = synthesize(trainer.generator(2), maps[:1], maps[1:], trainer.engine_cfg, cfg, False)
+    maps, batch = fixed_batch(trainer, shape)
     fixed_batch_check("fixed batch", trainer, batch)
     del trainer, batch
 
@@ -2876,6 +2920,307 @@ def quality_phase(dev, rehearsal, tmp):
     return counts, numbers
 
 
+PHASE13_BUDGET_S = 180  # of the script's 1200 s
+# 13a: tools/train_bench.py's runs, each in a process of its own:
+# (label, --batch, --width)
+TRAIN_BENCH_RUNS = (("flagship b1", 1, 0), ("flagship b2", 2, 0), ("w256 b1", 1, 256))
+TRAIN_BENCH_ARGS = ("--iters", "6", "--blocks", "3")
+LOSS_FLAT = 0.02  # 13a: final_loss at most this far above the warm-up step's
+STEP_AGREE = 0.25  # 13b: train_breakdown's full step within this share of 13a's s/step
+
+
+def train_bench_run(batch, width, rehearsal):
+    """One run of ``tools/train_bench.py``: on the card a process of its own,
+    through its argv; in the rehearsal its ``main`` at 16^3, 4 labels, width 8
+    for 256, one block of one step. Returns the exit code, stdout and stderr."""
+    args = ["--batch", str(batch), "--width", str(width)]
+    if not rehearsal:
+        r = subprocess.run([sys.executable, "-m", "multimodal_registration_torch.tools.train_bench",
+                            *TRAIN_BENCH_ARGS, *args], cwd=HERE, capture_output=True, text=True,
+                           timeout=PHASE13_BUDGET_S)
+        return r.returncode, r.stdout, r.stderr
+    import contextlib
+    import io
+
+    from multimodal_registration_torch.tools import train_bench as tb
+
+    out, err = io.StringIO(), io.StringIO()
+    saved = tb.SHAPE, tb.NUM_LABELS
+    tb.SHAPE, tb.NUM_LABELS = (16, 16, 16), 4
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            tb.main(["--iters", "1", "--blocks", "1", "--batch", str(batch),
+                     "--width", str(8 if width else 0), "--device", "cpu"])
+    finally:
+        tb.SHAPE, tb.NUM_LABELS = saved
+    return 0, out.getvalue(), err.getvalue()
+
+
+def train_bench_record(label, batch, width, rehearsal):
+    """13a's check of one ``train_bench`` run: exit code 0, one stdout line
+    with ``train_bench.py``'s keys, a positive rate, a finite final loss at
+    most ``LOSS_FLAT`` above the warm-up step's; on the card each step's
+    launches as counted and the peak memory. Returns its numbers."""
+    import re
+
+    from multimodal_registration_torch.tools import train_bench as tb
+
+    rc, stdout, stderr = train_bench_run(batch, width, rehearsal)
+    for line in stderr.splitlines():
+        print(f"#     {label}: {line}")
+    check(rc == 0, f"13a {label}: train_bench exited {rc}: {stderr[-2000:]}")
+    lines = [ln for ln in stdout.splitlines() if ln.strip()]
+    check(len(lines) == 1, f"13a {label}: want one stdout line, got {lines}")
+    rec = json.loads(lines[0])
+    print(f"#   13a {label}: {lines[0]}", flush=True)
+    want_metric = tb.metric_name(batch, 8 if rehearsal and width else width,
+                                 (16, 16, 16) if rehearsal else tb.SHAPE)
+    check(list(rec) == list(tb.KEYS) and rec["metric"] == want_metric
+          and rec["unit"] == "steps/s" and math.isfinite(rec["value"]) and rec["value"] > 0
+          and math.isfinite(rec["final_loss"]),
+          f"13a {label}: want {want_metric} with keys {tb.KEYS}, a rate > 0, a finite loss: {rec}")
+    warm = float(re.search(r"^# warm-up step: loss (\S+)$", stderr, re.M).group(1))
+    per_step = json.loads(re.search(r"^# launches per step: (\{.*\})$", stderr, re.M).group(1))
+    blocks = [float(v) for v in re.findall(r"^# block \d+: (\S+) s/step", stderr, re.M)]
+    peak = re.search(r"^# best \S+ s/step, peak memory (\S+) MiB$", stderr, re.M)
+    n_steps = 1 + len(blocks) * (6 if not rehearsal else 1)
+    numbers = {"metric": rec["metric"], "steps_per_s": rec["value"],
+               "sec_per_step": rec["sec_per_step"], "final_loss": rec["final_loss"],
+               "warmup_loss": warm, "blocks_s": blocks, "launches_per_step": per_step,
+               "steps": n_steps, "peak_mib": float(peak.group(1)) if peak else None}
+    if not rehearsal:
+        check(per_step == tb.step_launches(batch),
+              f"13a {label}: a step launched {per_step}, want {tb.step_launches(batch)}")
+        check(len(blocks) == 3 and peak is not None and numbers["peak_mib"] > 0,
+              f"13a {label}: the stderr lacks its blocks or its peak memory")
+        check(rec["final_loss"] <= warm + LOSS_FLAT,
+              f"13a {label}: the loss rose from {warm} to {rec['final_loss']} "
+              f"(allowed {LOSS_FLAT})")
+    return numbers
+
+
+def k4_w256_check(dev, shape, timer, rehearsal):
+    """13a: K4 at the w256 step's pool shapes (C = 256 on the full grid and
+    each level below), bf16, windows with ties, against its plain version
+    exactly; each shape's time beside its bound, plain version and the
+    backward of ``F.max_pool3d``. Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_registration_torch.ops.pool import max_pool_2x_bwd
+
+    C = 256 if not rehearsal else 8
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows, grid = [], tuple(shape)
+    for level in range(4):
+        half = tuple(s // 2 for s in grid)
+        x = (torch.randint(-6, 7, (1, *grid, C), generator=gen, device=dev) * 0.25).bfloat16()
+        g = torch.randn((1, *half, C), generator=gen, device=dev).bfloat16()
+        err = compare(f"13a K4 max_pool_2x_bwd bf16 equal {tuple(x.shape)}",
+                      max_pool_2x_bwd(x, g, "equal"), max_pool_2x_bwd(x, g, "equal", impl="plain"),
+                      0.0, exact=True)
+        xc = x.permute(0, 4, 1, 2, 3)
+        row = measure(timer, f"max_pool_2x_bwd C={C} {grid}",
+                      bound((2 * x.numel() + g.numel()) * 2, x.numel() * 3, FP32_FLOPS),
+                      lambda: max_pool_2x_bwd(x, g, "equal"),
+                      lambda: max_pool_2x_bwd(x, g, "equal", impl="plain"),
+                      backward_call(lambda v: F.max_pool3d(v, 2, 2), [xc],
+                                    g.permute(0, 4, 1, 2, 3)), n=5)
+        rows.append({"shape": list(x.shape), "max_abs_err": err, "ms": row["ms"],
+                     "device_ms": row["device_ms"], "device_ops": row["device_ops"],
+                     "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+                     "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+                     "library_device_ms": row["library_device_ms"]})
+        print(f"#   13a K4 {tuple(x.shape)}: {row['ms']:.4f} ms wrapper, device "
+              f"{row['device_ms']} ms, bound {row['bound'][0]:.4f} ms ({row['bound'][1]}), "
+              f"plain {row['plain_ms']:.4f} ms, max_pool3d backward {row['library_ms']:.4f} ms",
+              flush=True)
+        del x, g, xc
+        grid = half
+    return rows
+
+
+def _positive(label, rows: dict, keys):
+    bad = {k: rows[k] for k in keys if not (math.isfinite(rows[k]) and rows[k] > 0)}
+    check(not bad, f"{label}: rows not finite and positive: {bad}")
+
+
+def _finite(label, rows: dict, keys):
+    bad = {k: rows[k] for k in keys if not math.isfinite(rows[k])}
+    check(not bad, f"{label}: rows not finite: {bad}")
+
+
+def measurement_phase(dev, shape, timer, rehearsal, bench_numbers):
+    """Phase 13: the training step's and the batch pipeline's measurement
+    tools (``multimodal_registration_torch/tools/``). 13a ``train_bench``
+    (flagship batch 1 and 2, w256 batch 1) in processes of their own, the
+    w256 step's fixed batch and K4 at 256 channels against their plain
+    versions; 13b the attribution tools in this process; 13c the roofline
+    of the flagship and w256 forwards at 192^3 against phase 11's measured
+    forwards; 13d ``pipeline_throughput``. Returns the launch counts of
+    13a (the bench processes'), 13b and 13d, the phase's numbers and K4's
+    rows at 256 channels."""
+    import glob
+
+    import torch
+
+    from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.tools import (
+        bwd_breakdown, fwd_breakdown, pipeline_throughput, roofline, synth_breakdown,
+        train_breakdown, train_profile, train_sol)
+    from multimodal_registration_torch.train.config import TrainConfig
+    from multimodal_registration_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    counts, numbers = {}, {}
+    snapshot = {p: (open(p, "rb").read() if p.endswith(".json") else os.path.getmtime(p))
+                for p in glob.glob(os.path.join(HERE, "benchmarks", "*"))}
+
+    # ---- 13a. train_bench, w256 against the plain path, K4 at 256 channels
+    print(f"# phase 13a: tools/train_bench.py {' '.join(TRAIN_BENCH_ARGS)} in processes of "
+          f"their own: {', '.join(r[0] for r in TRAIN_BENCH_RUNS)}", flush=True)
+    numbers["13a"] = {}
+    counts["13a"] = dict.fromkeys(kernels.launch_counts(), 0)
+    for label, batch, width in TRAIN_BENCH_RUNS:
+        rec = numbers["13a"][label] = train_bench_record(label, batch, width, rehearsal)
+        for k, v in rec["launches_per_step"].items():
+            counts["13a"][k] += v * rec["steps"]
+    numbers["13a_bench_s"] = time.perf_counter() - t_phase
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    w256 = 256 if not rehearsal else 16
+    print(f"# phase 13a: the w256 step's fixed batch (enc/dec {w256}, {shape}) through the kernels "
+          "against the plain versions", flush=True)
+    cfg = TrainConfig.from_dict(dict(in_shape=list(shape), num_labels=26 if not rehearsal else 6,
+                                     enc=[w256] * 4, dec=[w256] * 6, batch_size=1))
+    trainer = Trainer(cfg, device=dev)
+    _, batch = fixed_batch(trainer, shape)
+    fixed_batch_check("13a w256 fixed batch", trainer, batch)
+    del trainer, batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    k4_rows = k4_w256_check(dev, shape, timer, rehearsal)
+    numbers["13a_s"] = time.perf_counter() - t_phase
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- 13b. the attribution tools, in this process
+    t0 = time.perf_counter()
+    print(f"# phase 13b: train_breakdown and train_profile (flagship and enc/dec {w256}), "
+          f"bwd_breakdown, synth_breakdown, train_sol at {shape}; fwd_breakdown train and "
+          f"infer256 at "
+          f"{(16, 16, 16) if rehearsal else BENCH_SHAPE}", flush=True)
+
+    def emit(tool):
+        def out(text):
+            for line in str(text).splitlines():
+                if line.strip():
+                    print(f"#   13b {tool}: {line}")
+        return out
+
+    kernels.reset_launch_counts()
+    b13 = {}
+    for label, width in (("train_breakdown", 0), ("train_breakdown_w256", w256)):
+        b13[label] = res = train_breakdown.run(small=rehearsal, device=dev, emit=emit(label),
+                                               width=width)
+        _positive(f"13b {label}", res, train_breakdown.ROWS)
+        _finite(f"13b {label}", res, train_breakdown.DERIVED)
+    b13["bwd_breakdown"] = bw = bwd_breakdown.run(small=rehearsal, device=dev,
+                                                  emit=emit("bwd_breakdown"))
+    _positive("13b bwd_breakdown", bw, [f"{c}_{k}_ms" for c in bwd_breakdown.COMPONENTS
+                                        for k in ("fwd", "fwd_bwd")])
+    _finite("13b bwd_breakdown", bw, [f"{c}_bwd_ms" for c in bwd_breakdown.COMPONENTS])
+    b13["synth_breakdown"] = sb = synth_breakdown.run(small=rehearsal, device=dev,
+                                                      emit=emit("synth_breakdown"))
+    _positive("13b synth_breakdown", sb, [f"cum_{s}_ms" for s in synth_breakdown.STAGES]
+              + ["aug_pair_ms", "synth_pair_ms"])
+    _finite("13b synth_breakdown", sb, [f"delta_{s}_ms" for s in synth_breakdown.STAGES])
+    profs = {}
+    for label, width in (("train_profile", 0), ("train_profile_w256", w256)):
+        prof = train_profile.run(3, rehearsal, device=dev, emit=emit(label), width=width)
+        if not rehearsal and not prof["on_device"]:  # no device record: see device_time
+            print(f"#   13b {label}: the trace held no device record; traced again", flush=True)
+            prof = train_profile.run(3, rehearsal, device=dev, emit=emit(label), width=width)
+        profs[label] = prof
+        b13[label] = {k: prof[k] for k in ("category_ms_per_step", "total_device_ms_per_step",
+                                           "on_device")}
+        _positive(f"13b {label}", prof["category_ms_per_step"], prof["category_ms_per_step"])
+    sol = train_sol.run(small=rehearsal, device=dev, emit=emit("train_sol"))
+    b13["train_sol"] = sol
+    for row in sol["rows"]:
+        _positive(f"13b train_sol {row['stage']}", row, ("ms", "floor_ms"))
+    fwd_shape = (16, 16, 16) if rehearsal else BENCH_SHAPE
+    for arch in ("train", "infer256"):
+        b13[f"fwd_breakdown_{arch}"] = fb = fwd_breakdown.run(
+            arch, 0, fwd_shape, device=dev, emit=emit(f"fwd_breakdown {arch}"))
+        _positive(f"13b fwd_breakdown {arch}", fb, fwd_breakdown.ROWS)
+    counts["13b"] = kernels.launch_counts()
+    numbers["13b"] = b13
+    for label, run13a in (("train_breakdown", "flagship b1"), ("train_breakdown_w256", "w256 b1")):
+        bench_ms = numbers["13a"][run13a]["sec_per_step"] * 1e3
+        gap = abs(b13[label]["full_step_ms"] - bench_ms) / bench_ms
+        print(f"#   13b {label} full_step_ms {b13[label]['full_step_ms']:.3f} against 13a's "
+              f"{run13a} {bench_ms:.3f} ms/step: {gap:.3f} apart (allowed {STEP_AGREE})",
+              flush=True)
+        check(rehearsal or gap <= STEP_AGREE,
+              f"13b: {label}'s full step disagrees with train_bench's {run13a}")
+    for label, prof in profs.items():
+        found = sorted(k for k in prof["category_ms_per_step"] if k.startswith("K"))
+        print(f"#   13b {label} names {found} ({'device' if prof['on_device'] else 'host'} "
+              "time)", flush=True)
+        check(rehearsal or (prof["on_device"]
+                            and all(k in found for k in ("K2", "K4", "K5", "K6", "K7"))),
+              f"13b: the {label} trace does not name K2, K4-K7: {found}")
+    numbers["13b_s"] = time.perf_counter() - t0
+
+    # ---- 13c. the forward's roofline at 192^3 against phase 11's forwards
+    print("# phase 13c: tools/roofline.py at 192^3 against bench_torch.py's best forwards "
+          "(phase 11)", flush=True)
+    measured = {arch: ms for (arch, q, _), ms in zip(BENCH_SPECS, bench_numbers["11a"]["best_ms"])
+                if not q}
+    numbers["13c"] = {}
+    for arch, width in (("train64", 64), ("infer256", 256)):
+        r = roofline.roofline(BENCH_SHAPE, width)["total"]
+        ms = measured.get(arch)
+        share = r["sol_ms_flops"] / ms if ms else None
+        numbers["13c"][arch] = {**r, "measured_ms": ms, "forward_mfu": share}
+        print(f"#   13c {arch}: sol_ms_flops {r['sol_ms_flops']:.4f}, sol_ms_hbm "
+              f"{r['sol_ms_hbm']:.4f}, measured "
+              f"{'not measured' if ms is None else f'{ms:.4f} ms'}, forward_mfu "
+              f"{'not measured' if share is None else f'{share:.4f}'}", flush=True)
+
+    # ---- 13d. pipeline_throughput
+    t0 = time.perf_counter()
+    n_subjects = 2 if rehearsal else 4
+    configs = ("default", "noprefetch", "jobs2")
+    print(f"# phase 13d: tools/pipeline_throughput.py --subjects {n_subjects} --configs "
+          f"{','.join(configs)}{' --quick' if rehearsal else ''}", flush=True)
+    kernels.reset_launch_counts()
+    doc = pipeline_throughput.run(configs, n_subjects, quick=rehearsal, device=dev,
+                                  emit=lambda text: None)
+    counts["13d"] = kernels.launch_counts()
+    launched("13d", counts["13d"], rehearsal=rehearsal)
+    numbers["13d"] = doc
+    for name, c in doc["configs"].items():
+        print(f"#   13d {name}: ok {c['ok']}, {c['subjects_per_min']:.4f} subjects/min "
+              f"(steady {c['subjects_per_min_steady']}), wall {c['wall_s']:.2f} s, per subject "
+              f"{[round(s, 3) for s in c['per_subject_s']]}", flush=True)
+        print(f"#   13d {name} phases (s): {json.dumps(c['phase_totals_s'])}")
+        check(c["ok"] and len(c["per_subject_s"]) == n_subjects,
+              f"13d {name}: a subject failed or is missing")
+    print(f"#   13d dataset built in {doc['dataset_build_s']:.2f} s", flush=True)
+    numbers["13d_s"] = time.perf_counter() - t0
+
+    after = {p: (open(p, "rb").read() if p.endswith(".json") else os.path.getmtime(p))
+             for p in glob.glob(os.path.join(HERE, "benchmarks", "*"))}
+    check(after == snapshot, "phase 13 changed something under benchmarks/")
+    numbers["total_s"] = time.perf_counter() - t_phase
+    print(f"#   phase 13: {numbers['total_s']:.1f} s of its budget of {PHASE13_BUDGET_S} s "
+          f"(13a {numbers['13a_s']:.1f} s, its bench processes {numbers['13a_bench_s']:.1f} s; "
+          f"13b {numbers['13b_s']:.1f} s; 13d {numbers['13d_s']:.1f} s)", flush=True)
+    return counts, numbers, k4_rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -3229,7 +3574,14 @@ def main() -> None:
         quality_launches, quality_numbers = quality_phase(dev, rehearsal, td)
     print(f"#   phase 12 numbers: {json.dumps(quality_numbers)}")
 
-    # ---- 13. report ----------------------------------------------------------
+    # ---- 13. the training step's and the pipeline's measurement tools ----------------
+    clear_scratch()
+    tools_launches, tools_numbers, k4_w256 = measurement_phase(dev, shape, timer, rehearsal,
+                                                               bench_numbers)
+    timing["max_pool_2x_bwd"]["w256"] = k4_w256
+    print(f"#   phase 13 numbers: {json.dumps(tools_numbers)}")
+
+    # ---- 14. report ----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
     # before it: register() for K1-K3, run_training() for K4-K7, register()
     # with the published config in int8 (7d) for K8
@@ -3252,6 +3604,7 @@ def main() -> None:
             **{f"launches_{phase}": n[k.name] for phase, n in multi_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in bench_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in quality_launches.items()},
+            **{f"launches_{phase}": n[k.name] for phase, n in tools_launches.items()},
             "max_abs_err": results[k.name]["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
@@ -3262,6 +3615,8 @@ def main() -> None:
                                "bound_needed_by": row["bound_needed"][1]})
         if "shapes" in row:  # K8: every int8 conv shape of the w256 forward
             report[-1]["shapes"] = row["shapes"]
+        if "w256" in row:  # K4: the pools of the w256 training step, 256 channels (13a)
+            report[-1]["w256"] = row["w256"]
         if "fused" in row:  # K2 and K5: the fused squaring step, timed on its own
             fused = row["fused"]
             report[-1].update({
@@ -3296,7 +3651,14 @@ def main() -> None:
                      for arm, s in quality_numbers['12a']['summary'].items()
                      if s['dice_before_after'])
           + f" two_step_minus_single {quality_numbers['12b']['summary']['two_step_minus_single']} "
-          f"phase12_s {quality_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
+          f"phase12_s {quality_numbers['total_s']:.1f} "
+          + " ".join(f"train_bench_{label.replace(' ', '_')}_s_per_step {r['sec_per_step']:.6f}"
+                     for label, r in tools_numbers['13a'].items())
+          + " " + " ".join(f"forward_mfu_{arch} {r['forward_mfu']}"
+                           for arch, r in tools_numbers['13c'].items())
+          + " " + " ".join(f"pipeline_{name}_subjects_per_min {c['subjects_per_min']:.4f}"
+                           for name, c in tools_numbers['13d']['configs'].items())
+          + f" phase13_s {tools_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

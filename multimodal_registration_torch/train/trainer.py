@@ -23,10 +23,10 @@ by its share of the batch; the gradients are summed onto the first device in
 replica order, clipped and applied there, and the parameters copied back to
 the other devices before the next step.
 
-Kernels on this path, per step at batch B: K2 x11 (5 for the generators'
-integration, 5 for the model's, 1 compose), K5 x6 (their backward; the
-generators' need none), K6 x3B (two synthesis warps and the loss's), K7 x1,
-K4 x4 (the pools of enc_0..enc_3). K1 and K3 are inference kernels: enc_0
+Kernels on this path, per step at batch B on one device: K2 x11 (5 for the
+generators' integration, 5 for the model's, 1 compose, each batched), K5 x6
+(their backward; the generators' need none), K6 x2B+1 (two synthesis warps a
+sample and the loss's batched one), K7 x1, K4 x4 (the pools of enc_0..enc_3). K1 and K3 are inference kernels: enc_0
 runs unfused and ``moved`` is not computed.
 
 Differences from the JAX trainer: checkpoints are the flat ``.npz``

@@ -70,7 +70,12 @@ def test_port_imports_nothing_of_jax():
     for new in ("ops/conv_int8.py", "models/quantize.py",  # the int8 route is scanned too
                 "pipeline/batch.py", "pipeline/runner.py", "utils/native.py", "infer/sharded.py",
                 "parallel/mesh.py", "parallel/spatial.py", "infer/selftest.py",
-                "tools/dryrun_multichip.py", "tools/pipeline_quality.py"):
+                "tools/dryrun_multichip.py", "tools/pipeline_quality.py",
+                # the measurement tools (the benchmarks/ scripts' counterparts)
+                "tools/timing.py", "tools/roofline.py", "tools/train_bench.py",
+                "tools/train_breakdown.py", "tools/bwd_breakdown.py", "tools/synth_breakdown.py",
+                "tools/train_profile.py", "tools/train_sol.py", "tools/fwd_breakdown.py",
+                "tools/pipeline_throughput.py"):
         assert os.path.join(PKG, new) in files, new
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]

@@ -269,6 +269,22 @@ def test_k4_pool_bwd_matches_plain_with_ties(cuda_device, dtype, tie):
     assert float(got[:, 8].abs().max()) == 0.0  # the dropped plane gets no gradient
 
 
+@pytest.mark.parametrize("tie", ["equal", "first"])
+def test_k4_w256_enc0_pool_at_160x160x192(cuda_device, tie):
+    """The w256 training step's first pool adjoint: 256 channels on the full
+    160x160x192 grid (1.26e9 values), bf16, values drawn on the card."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    x = (torch.randint(-3, 4, (1, 160, 160, 192, 256), generator=gen, device=cuda_device)
+         * 0.5).bfloat16()
+    g = torch.randn((1, 80, 80, 96, 256), generator=gen, device=cuda_device).bfloat16()
+    before = kernels.MAX_POOL_2X_BWD.launches
+    got = tpool.max_pool_2x_bwd(x, g, tie)
+    want = tpool.max_pool_2x_bwd(x, g, tie, impl="plain")
+    torch.cuda.synchronize()
+    assert kernels.MAX_POOL_2X_BWD.launches == before + 1
+    assert torch.equal(got, want)
+
+
 def test_k4_through_autograd(cuda_device):
     x = _tied((1, 8, 8, 8, 3), 22, torch.float32, cuda_device).requires_grad_()
     before = kernels.MAX_POOL_2X_BWD.launches
