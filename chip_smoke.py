@@ -12,8 +12,13 @@ Phases (any failure exits non-zero):
      and, F12, the w256 first level at 192^3 with batch 2; K8, the int8
      conv, at a ragged shape here and at the published widths' shapes in
      phase 7; K2 and K5 also through their fused squaring step: forward exact,
-     backward, the 5-step integration and its device launches), and check that
-     the inference-only kernels refuse to be differentiated;
+     backward, the 5-step integration and its device launches; K6 and K7 also
+     through their Dice entries, the training loss's fused Dice: the sums and
+     the flow gradient against their plain versions, the fused loss against
+     the dense path (the plain versions, and K6 + K7) at 160x160x192 with 26
+     labels, both zeropad settings, each entry's time beside its bounds, and
+     the dense path's device time and peak memory beside the fused one's),
+     and check that the inference-only kernels refuse to be differentiated;
   3. the flagship forward (VxmDense enc [64]x4 / dec [64]x6, int_steps 5,
      svf_res = int_res = 2, bf16) on the in-repo checkpoint at
      (1, 160, 160, 192, 1): kernel path against the plain path, launch
@@ -27,8 +32,9 @@ Phases (any failure exits non-zero):
      their plain versions; then ``run_training`` (label maps generated on the
      card, 26 labels, 160x160x192, batch 1) for 4 steps with the pool
      adjoint's tie rule ``equal`` and one with ``first``: launch counts per
-     step, s/step, peak memory, a profile, and each training kernel's time
-     beside its bound, its plain version and a PyTorch yardstick;
+     step (the loss's Dice through K6's and K7's Dice entries), s/step, peak
+     memory, a profile, and each training kernel's time beside its bound, its
+     plain version and a PyTorch yardstick;
   6. inference on real-scan layouts, at the flagship widths on the in-repo
      checkpoints, each through the kernels (launches counted) and through
      their plain versions (``impl="plain"``), the files written and finite:
@@ -74,9 +80,9 @@ Phases (any failure exits non-zero):
      8e. the native NIfTI reader and gzip writer against the Python ones on
          the largest output file, in MB/s, the arrays equal;
   9. the port's training learns (``tools/learn_check.py``), budget 180 s:
-     9a. the flagship model trained from scratch at 96^3, 16 labels, 3000
+     9a. the flagship model trained from scratch at 96^3, 16 labels, 1000
          steps (the svf4 probe's configuration at ``TrainConfig``'s
-         ``svf_int_res``), held-out Dice and NMI at 1000, 2000 and 3000 steps:
+         ``svf_int_res``), held-out Dice and NMI after them:
          both above the identity's at the end, and the mean loss of the last
          200 steps below that of the first 200;
      9b. a warm start from ``learned_ref_160x160x192_26lab.npz`` at
@@ -149,7 +155,7 @@ Phases (any failure exits non-zero):
      13c. ``roofline`` at 192^3 for the flagship and w256 forwards against
           phase 11's measured forwards: ``forward_mfu`` = sol_ms_flops /
           measured ms;
-     13d. ``pipeline_throughput --subjects 4 --configs
+     13d. ``pipeline_throughput --subjects 3 --configs
           default,noprefetch,jobs2``: every subject ok, subjects/min;
  14. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
@@ -477,6 +483,9 @@ def fused_step_phase(dev, half, results, rehearsal):
     results["warp_trilinear_bwd"]["fused_max_abs_err"] = max(err_b)
 
 
+# the report's rows of the Dice entries of K6 and K7, by their C entries
+DICE_ENTRIES = {"warp_labels_dice_fwd": "warp_labels_dice_fwd_launch",
+                "warp_labels_dice_bwd": "warp_labels_dice_bwd_launch"}
 TRAIN_WANT = {"conv3_lrelu_pool": 0, "warp_trilinear": 11, "warp_up2x": 0,
               "max_pool_2x_bwd": 4, "warp_trilinear_bwd": 6,
               "warp_labels_soft_hard": 3, "warp_labels_bwd": 1, "conv3_int8": 0}
@@ -699,6 +708,151 @@ def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
         4 * needed + nfull * (1 + 12 + 12), nfull * 80, FP32_FLOPS)
     print(f"#   K7 bound {timing['warp_labels_bwd']['bound'][0]:.4f} ms by the sectors moved, "
           f"{timing['warp_labels_bwd']['bound_needed'][0]:.4f} ms by the entries needed")
+    dice_phase(dev, shape, timer, results, timing, labels, lflow, L, gen, needed, sectors)
+
+
+def rel_err(name, got, ref, tol):
+    """``|got - ref| / |ref|`` of two scalars, printed and held to ``tol``."""
+    got, ref = float(got), float(ref)
+    err = abs(got - ref) / max(abs(ref), 1e-30)
+    print(f"#   {name}: {got:.8f} against {ref:.8f}, relative error {err:.3e} (tolerance "
+          f"{tol:.0e}) {'ok' if err <= tol else 'FAILED'}", flush=True)
+    check(err <= tol, f"{name} disagrees")
+    return err
+
+
+def dice_phase(dev, shape, timer, results, timing, labels, lflow, L, gen, needed, sectors):
+    """Phase 2, the training loss's Dice pair: K6's Dice entry (the sums I,
+    P, T of each label, without the warped map) and K7's (the flow gradient,
+    its cotangent formed in the kernel) against their plain versions, and
+    ``warp_onehot_dice_batch`` against the dense composition through the
+    plain versions (``impl="plain"``) and through K6 and K7, at the phase's
+    labels and field; the target t is K6's soft warp of a second label map
+    under a second smooth field. Loss within 1e-5 relative (sums over the
+    volume in another order), flow gradients within 1e-5 of their largest
+    entry, both zeropad settings. Then each entry's time beside its bound,
+    the dense path's device time on the same inputs, and each path's peak
+    memory above its inputs."""
+    import torch
+
+    from multimodal_registration_torch.losses import dice_loss, dice_loss_zeropad
+    from multimodal_registration_torch.ops.warp import (
+        dice_coefficients, warp_labels_dice_flow_grad, warp_labels_dice_sums, warp_onehot_batch,
+        warp_onehot_dice_batch)
+
+    nfull = math.prod(shape)
+    coarse = torch.randint(0, L, (1, *(max(s // 8, 1) for s in shape)), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    labels2 = coarse.repeat_interleave(8, 1).repeat_interleave(8, 2).repeat_interleave(8, 3)
+    labels2 = labels2[:, :shape[0], :shape[1], :shape[2]].contiguous()
+    with torch.no_grad():
+        t = warp_onehot_batch(labels2, smooth_field(shape, 3.0, 8, dev), L)
+    del labels2
+    errs_f, errs_b = [], []
+    for zeropad in (False, True):
+        zp = f"zeropad {str(zeropad).lower()}"
+        sums = warp_labels_dice_sums(labels, lflow, t, L, zeropad)
+        psums = warp_labels_dice_sums(labels, lflow, t, L, zeropad, impl="plain")
+        loss, coef = dice_coefficients(sums, zeropad)
+        ploss, pcoef = dice_coefficients(psums, zeropad)
+        rel_err(f"K6 warp_labels_dice_fwd, {zp}: the loss from its sums", loss, ploss, 1e-5)
+        errs_f.append(abs(float(loss) - float(ploss)))
+        srel = float(((sums - psums).abs() / psums.abs().clamp(min=1.0)).max())
+        print(f"#   K6 warp_labels_dice_fwd, {zp}: sums max relative error {srel:.3e}")
+        gk = warp_labels_dice_flow_grad(labels, lflow, t, pcoef, L, zeropad)
+        gp = warp_labels_dice_flow_grad(labels, lflow, t, pcoef, L, zeropad, impl="plain")
+        m = float(gp.abs().max())
+        check(m > 0, f"K7 warp_labels_dice_bwd, {zp}: the plain gradient is zero")
+        errs_b.append(compare(f"K7 warp_labels_dice_bwd, {zp}: grad flow (max {m:.3e})", gk, gp,
+                              1e-5 * m))
+        del gk, gp
+        # the function against the dense path, through the plain versions and
+        # through K6 and K7
+        dense = dice_loss_zeropad if zeropad else dice_loss
+        sides = {}
+        for name, fn in (
+            ("fused", lambda f: warp_onehot_dice_batch(labels, f, t, L, zeropad)),
+            ("dense, plain", lambda f: warp_onehot_dice_batch(labels, f, t, L, zeropad,
+                                                              impl="plain")),
+            ("dense, K6 + K7", lambda f: dense(t, warp_onehot_batch(labels, f, L))),
+        ):
+            f = lflow.clone().requires_grad_()
+            d = fn(f)
+            d.backward()
+            sides[name] = (d.detach(), f.grad)
+            del d, f
+        d, g = sides.pop("fused")
+        for name, (dp, gp) in sides.items():
+            rel_err(f"warp_onehot_dice_batch, {zp}, against the {name} path: loss", d, dp, 1e-5)
+            m = float(gp.abs().max())
+            compare(f"warp_onehot_dice_batch, {zp}, against the {name} path: grad flow "
+                    f"(max {m:.3e})", g, gp, 1e-5 * m)
+        del sides, d, g
+    results["warp_labels_dice_fwd"] = {"max_abs_err": max(errs_f)}
+    _, coef = dice_coefficients(warp_labels_dice_sums(labels, lflow, t, L), False)
+    results["warp_labels_dice_bwd"] = {"max_abs_err": max(errs_b)}
+
+    def no_grad(fn):
+        def call():
+            with torch.no_grad():
+                return fn()
+        return call
+
+    # the forward reads all of t (T needs every entry), the flow and the labels
+    timing["warp_labels_dice_fwd"] = measure(
+        timer, "warp_labels_dice_fwd",
+        bound(nfull * (1 + 12 + 4 * L), nfull * (40 + 8 * L), FP32_FLOPS),
+        no_grad(lambda: warp_labels_dice_sums(labels, lflow, t, L)),
+        no_grad(lambda: warp_labels_dice_sums(labels, lflow, t, L, impl="plain")),
+        plain_kw={"n": 2, "reps": 3})
+    # the backward reads of t what K7 reads of its cotangent, in the same layout
+    timing["warp_labels_dice_bwd"] = measure(
+        timer, "warp_labels_dice_bwd",
+        bound(32 * sectors + nfull * (1 + 12 + 12), nfull * 80, FP32_FLOPS),
+        no_grad(lambda: warp_labels_dice_flow_grad(labels, lflow, t, coef, L)),
+        no_grad(lambda: warp_labels_dice_flow_grad(labels, lflow, t, coef, L, impl="plain")),
+        plain_kw={"n": 2, "reps": 3})
+    timing["warp_labels_dice_bwd"]["bound_needed"] = bound(
+        4 * needed + nfull * (1 + 12 + 12), nfull * 80, FP32_FLOPS)
+    print(f"#   K7 warp_labels_dice_bwd bound {timing['warp_labels_dice_bwd']['bound'][0]:.4f} ms "
+          f"by the sectors of t moved, "
+          f"{timing['warp_labels_dice_bwd']['bound_needed'][0]:.4f} ms by the entries needed")
+
+    # the loss's forward and backward, fused against dense (K6, dice_loss, its
+    # backward, K7), as a training step runs them: device time and operations
+    def step_of(fn):
+        def call():
+            f = lflow.detach().requires_grad_()
+            d = fn(f)
+            torch.autograd.grad(d, f)
+        return call
+
+    paths = {"fused": step_of(lambda f: warp_onehot_dice_batch(labels, f, t, L)),
+             "dense": step_of(lambda f: dice_loss(t, warp_onehot_batch(labels, f, L)))}
+    yard = {}
+    for name, call in paths.items():
+        row = {"ms": timer(call, n=5)}
+        row["device_ms"], row["device_ops"], _ = device_time(
+            call, f"Dice loss forward + backward, {name}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            call()
+            torch.cuda.synchronize()
+            row["peak_extra_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        yard[name] = row
+    soft_mib = nfull * L * 4 / 2**20
+    print(f"#   Dice loss forward + backward ({'x'.join(map(str, shape))}, {L} labels): "
+          + "; ".join(f"{k} {v['ms']:.4f} ms wrapper, {v['device_ms']} ms device in "
+                      f"{v['device_ops']} operations, peak {v.get('peak_extra_mib', float('nan')):.1f}"
+                      f" MiB above its inputs" for k, v in yard.items())
+          + f"; one soft map is {soft_mib:.1f} MiB", flush=True)
+    if dev.type == "cuda":
+        check(yard["fused"]["peak_extra_mib"] < 0.25 * soft_mib,
+              f"the fused Dice allocated {yard['fused']['peak_extra_mib']:.1f} MiB: a soft map "
+              f"or its cotangent ({soft_mib:.1f} MiB) was formed")
+    timing["warp_labels_dice_bwd"]["paths"] = yard
 
 
 def fixed_batch(trainer, shape):
@@ -788,7 +942,9 @@ def training_phase(dev, shape, timer, rehearsal, tmp):
     kernels.reset_launch_counts()
     out = run_training(cfg, max_steps=4, device=dev, pool_tie="equal")
     launches = kernels.launch_counts()
-    print(f"#   launches in run_training (label maps, 4 steps, 2 validation steps): {launches}")
+    entries = kernels.entry_launch_counts()
+    print(f"#   launches in run_training (label maps, 4 steps, 2 validation steps): {launches}; "
+          f"by entry {entries}")
     check(out["steps"] == 4, f"run_training took {out['steps']} steps, not 4")
     for row in out["history"]:
         check(all(np.isfinite(row[k]) for k in ("loss", "dice_loss", "grad_loss", "val_loss")),
@@ -809,9 +965,16 @@ def training_phase(dev, shape, timer, rehearsal, tmp):
     kernels.reset_launch_counts()
     trainer.train_step_banked(gen, bank, si, ti)
     per_step = kernels.launch_counts()
-    print(f"#   launches per training step: {per_step}")
+    step_entries = kernels.entry_launch_counts()
+    print(f"#   launches per training step: {per_step}; by entry {step_entries}")
     if not rehearsal:
         check(per_step == TRAIN_WANT, f"a step launched {per_step}, want {TRAIN_WANT}")
+        # the loss's Dice through K6's and K7's Dice entries; K7's general
+        # entry (a dense cotangent) no more
+        check(step_entries.get("warp_labels_dice_fwd_launch") == 1
+              and step_entries.get("warp_labels_dice_bwd_launch") == 1
+              and "warp_labels_bwd_launch" not in step_entries,
+              f"a step's Dice did not run through the Dice entries: {step_entries}")
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -836,7 +999,7 @@ def training_phase(dev, shape, timer, rehearsal, tmp):
           f"the step with tie='first' failed: {out1['history']}, {first}")
     print(f"#   one step with pool_tie='first': loss {out1['history'][0]['loss']:.5f}, "
           f"K4 launches {first['max_pool_2x_bwd']}")
-    return launches, {"step_s": step_ms / 1e3, "train_peak_mib": peak}
+    return launches, {"step_s": step_ms / 1e3, "train_peak_mib": peak, "entries": entries}
 
 
 SERVING = ("conv3_lrelu_pool", "warp_trilinear", "warp_up2x")
@@ -1865,7 +2028,7 @@ def pipeline_phase(dev, rehearsal, tmp):
 
 
 PHASE9_BUDGET_S = 180  # of the script's 1200 s
-LEARN_STEPS = 3000  # 9a: the svf4 probe's count (benchmarks/svf4_learn_results.json)
+LEARN_STEPS = 1000  # 9a: a third of the svf4 probe's 3000 (benchmarks/svf4_learn_results.json)
 WARM_STEPS = 300    # 9b
 # a training step's kernels in a profiler trace, by their CUDA function names
 TRACE_NAMES = {
@@ -1874,7 +2037,8 @@ TRACE_NAMES = {
     "warp_trilinear_bwd": ("self_warp_add_bwd_kernel", "warp_bwd_tiled_kernel",
                            "warp_bwd_kernel"),
     "warp_labels_soft_hard": ("warp_labels_kernel",),
-    "warp_labels_bwd": ("warp_labels_bwd_kernel",),
+    "warp_labels_dice_fwd": ("warp_labels_dice_fwd_kernel", "warp_labels_dice_reduce_kernel"),
+    "warp_labels_bwd": ("warp_labels_dice_bwd_kernel",),
 }
 
 
@@ -1887,7 +2051,7 @@ def trace_kernel_names(path):
 
 def learning_phase(dev, rehearsal, tmp):
     """Phase 9: the port's training learns at full width. 9a trains the
-    flagship model from scratch (96^3, 16 labels, 3000 steps) and holds it
+    flagship model from scratch (96^3, 16 labels, 1000 steps) and holds it
     against the identity on held-out pairs; 9b warm-starts from the in-repo
     ``learned_ref`` checkpoint (160x160x192, 26 labels, 300 steps); 9c traces
     three of 9a's training steps with ``device_trace``. Returns the launch
@@ -3191,7 +3355,7 @@ def measurement_phase(dev, shape, timer, rehearsal, bench_numbers):
 
     # ---- 13d. pipeline_throughput
     t0 = time.perf_counter()
-    n_subjects = 2 if rehearsal else 4
+    n_subjects = 2 if rehearsal else 3
     configs = ("default", "noprefetch", "jobs2")
     print(f"# phase 13d: tools/pipeline_throughput.py --subjects {n_subjects} --configs "
           f"{','.join(configs)}{' --quick' if rehearsal else ''}", flush=True)
@@ -3519,8 +3683,10 @@ def main() -> None:
     training = tuple(k.name for k in kernels.KERNELS
                      if k.name not in serving + ("conv3_int8",)) + ("warp_trilinear",)
     if not rehearsal:
-        check(all(train_launches[k] >= 1 for k in training),
-              f"a kernel of the training path was not launched by run_training(): {train_launches}")
+        check(all(train_launches[k] >= 1 for k in training)
+              and all(train_numbers["entries"].get(e, 0) >= 1 for e in DICE_ENTRIES.values()),
+              f"a kernel of the training path was not launched by run_training(): "
+              f"{train_launches}, {train_numbers['entries']}")
         # K1 serves the validation steps (no gradient is asked there): one
         # launch each; K3 never runs, the loss does not read `moved`
         check(train_launches["conv3_lrelu_pool"] == 2 and train_launches["warp_up2x"] == 0,
@@ -3625,6 +3791,26 @@ def main() -> None:
                 "fused_device_ops": fused["device_ops"], "fused_plain_ms": fused["plain_ms"],
                 "fused_bound_ms": fused["bound"][0], "fused_bound_by": fused["bound"][1],
             })
+    # the Dice entries of K6 and K7, each a row of its own: launches of the
+    # training path (run_training), counted by entry
+    for name, symbol in DICE_ENTRIES.items():
+        row = timing[name]
+        owner = kernels.WARP_LABELS if name.endswith("fwd") else kernels.WARP_LABELS_BWD
+        report.append({
+            "name": name, "route": "cuda",
+            "source": f"multimodal_registration_torch/csrc/{owner.source}",
+            "replaces": owner.replaces, "entry_of": owner.name,
+            "launches": train_numbers["entries"].get(symbol, 0),
+            "max_abs_err": results[name]["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "library_ms": row["library_ms"], "device_ms": row["device_ms"],
+            "device_ops": row["device_ops"], "library_device_ms": row["library_device_ms"],
+        })
+        if "bound_needed" in row:
+            report[-1].update({"bound_needed_ms": row["bound_needed"][0],
+                               "bound_needed_by": row["bound_needed"][1]})
+        if "paths" in row:  # the Dice loss's forward + backward, fused against dense
+            report[-1]["loss_paths"] = row["paths"]
     print(json.dumps({"kernels": report}))
     print(f"# forward_ms {fwd_ms:.4f} pairs_per_s {1000 / fwd_ms:.4f} peak_mib {peak:.1f} "
           f"train_s_per_step {train_numbers['step_s']:.4f} "

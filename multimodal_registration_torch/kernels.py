@@ -13,7 +13,8 @@ Every kernel is a :class:`Kernel`. Its ``launches`` counter goes up by one
 where the kernel is launched and nowhere else, so a run can show that its
 main path went through the kernel. A kernel may have further C entries in
 its source (another mode of the same function, or a pass that completes it):
-:meth:`Kernel.launch_entry` calls them, counted on the same counter or not.
+:meth:`Kernel.launch_entry` calls them, counted on the same counter or not;
+:func:`entry_launch_counts` tells the entries apart.
 """
 
 from __future__ import annotations
@@ -114,6 +115,7 @@ class Kernel:
         self.symbol = symbol
         self.replaces = replaces
         self.launches = 0
+        self.entry_launches: dict[str, int] = {}  # symbol -> its counted launches
         self._argtypes = {symbol: argtypes, **(entries or {})}
         self._fns = {}
 
@@ -135,6 +137,7 @@ class Kernel:
             raise RuntimeError(f"{self.name} ({symbol}): CUDA launch failed ({rc}: {msg})")
         if count:
             self.launches += 1
+            self.entry_launches[symbol] = self.entry_launches.get(symbol, 0) + 1
 
     def launch(self, *args) -> None:
         """Launch the kernel's main entry."""
@@ -191,12 +194,23 @@ WARP_LABELS = Kernel(
     # labels, flow, soft, hard, B, X, Y, Z, L, labels_are_u8, stream
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "multimodal_registration_tpu/ops/warp.py:570",
+    entries={
+        # the training loss's Dice sums without the soft map: labels, flow, t,
+        # partial (scratch), sums, B, X, Y, Z, L, tile voxels, blocks, zeropad,
+        # labels_are_u8, stream
+        "warp_labels_dice_fwd_launch": [_P, _P, _P, _P, _P, *[_I] * 9, _P],
+    },
 )
 WARP_LABELS_BWD = Kernel(
     "warp_labels_bwd", "warp_labels.cu", "warp_labels_bwd_launch",
     # g, labels, flow, gflow, B, X, Y, Z, L, labels_are_u8, stream
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "multimodal_registration_tpu/ops/warp.py:601",
+    entries={
+        # the Dice loss's flow gradient, its cotangent formed in the kernel:
+        # t, labels, flow, coef, gflow, B, X, Y, Z, L, zeropad, labels_are_u8, stream
+        "warp_labels_dice_bwd_launch": [_P, _P, _P, _P, _P, *[_I] * 7, _P],
+    },
 )
 CONV3_INT8 = Kernel(
     "conv3_int8", "conv_int8.cu", "conv3_int8_launch",
@@ -221,9 +235,15 @@ def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
 
 
+def entry_launch_counts() -> dict:
+    """Counted launches by C entry (``symbol``), across every kernel."""
+    return {sym: n for k in KERNELS for sym, n in k.entry_launches.items()}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.entry_launches.clear()
 
 
 def stream_of(t) -> int:

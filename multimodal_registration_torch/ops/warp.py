@@ -3,7 +3,9 @@
 (``warp_labels_soft_hard``) and K7 (its backward), with their plain versions.
 K2 and K5 each have a second entry, the fused squaring step of the
 scaling-and-squaring integration and its backward
-(:func:`self_warp_add_batch`).
+(:func:`self_warp_add_batch`). K6 and K7 each have a second entry too, the
+training loss's Dice of the warped one-hot, forward and backward, which never
+forms the warped map or its cotangent (:func:`warp_onehot_dice_batch`).
 
 Counterpart of ``multimodal_registration_tpu/ops/warp.py``. Semantics
 (``vxm.layers.SpatialTransformer``): sample location = identity grid +
@@ -20,7 +22,7 @@ compare the two). A CUDA tensor never falls back to the plain version.
 Gradients. K2 is differentiable: its backward is kernel K5 (the scatter-add
 into the volume, summed in float32 and rounded once, and the gradient w.r.t.
 the coordinates through the trilinear weights). K6's backward w.r.t. the flow
-is K7. K3 has no backward yet and raises when a gradient is asked of it. The
+is K7; the fused Dice loss's backward is K7's Dice entry. K3 has no backward yet and raises when a gradient is asked of it. The
 plain versions are differentiable by autograd. The clip's derivative follows
 the JAX package's rule in kernels and plain versions alike: ``jnp.clip`` is
 ``min(max(c, 0), dim-1)`` and each of ``max`` and ``min`` splits its
@@ -44,10 +46,13 @@ differ from run to run in the last bits.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.autograd.function import once_differentiable
 
 from multimodal_registration_torch import kernels
+from multimodal_registration_torch.losses import dice_loss, dice_loss_zeropad
 from multimodal_registration_torch.ops.grid import identity_grid
 from multimodal_registration_torch.ops.resize import rescale_field
 
@@ -418,13 +423,17 @@ def _check_labels(labels: torch.Tensor, flow: torch.Tensor, num_classes: int) ->
         raise ValueError(f"num_classes must be positive, got {num_classes}")
 
 
-def _warp_labels_plain(labels, flow, num_classes):
-    """Plain version of K6, differentiable w.r.t. ``flow`` by autograd (which
-    is the plain version of K7). Labels must lie in ``[0, num_classes)``."""
+def _label_corners_plain(labels, flow):
+    """The 8 corners of each voxel's sample in (dx, dy, dz) order, as K6
+    takes them: ``(r, w1, labs, ws)``, the unclipped coordinates ``(B, N,
+    3)``, the fractions of the clipped ones ``(B, N, 3)``, the corners'
+    labels ``(B, N, 8)`` int64 and trilinear weights ``(wx*wy)*wz`` ``(B, N,
+    8)`` float32, differentiable w.r.t. ``flow``."""
     B, X, Y, Z = labels.shape
     N = X * Y * Z
     grid = identity_grid((X, Y, Z), device=flow.device).reshape(1, N, 3)
-    c = _clip(grid + flow.float().reshape(B, N, 3), X, Y, Z)
+    r = grid + flow.float().reshape(B, N, 3)
+    c = _clip(r, X, Y, Z)
     flat = labels.reshape(B, N).long()
     c0 = torch.floor(c)
     w1 = c - c0
@@ -442,10 +451,22 @@ def _warp_labels_plain(labels, flow, num_classes):
                 iz = i1[..., 2] if dz else i0[..., 2]
                 labs.append(torch.gather(flat, 1, (ix * Y + iy) * Z + iz))
                 ws.append(wx * wy * wz)
+    return r, w1, torch.stack(labs, -1), torch.stack(ws, -1)
+
+
+def _warp_labels_plain(labels, flow, num_classes):
+    """Plain version of K6, differentiable w.r.t. ``flow`` by autograd (which
+    is the plain version of K7). Labels must lie in ``[0, num_classes)``.
+    Each voxel's sums are taken corner by corner, in K6's order, so the soft
+    map equals K6's bit for bit on any device."""
+    B, X, Y, Z = labels.shape
+    N = X * Y * Z
+    r, _, labs, ws = _label_corners_plain(labels, flow)
     soft = torch.zeros((B, N, num_classes), dtype=torch.float32, device=flow.device)
-    soft = soft.scatter_add(2, torch.stack(labs, -1), torch.stack(ws, -1))
-    r = torch.round(c.detach()).long()  # half to even, like jnp.round
-    hard = torch.gather(flat, 1, (r[..., 0] * Y + r[..., 1]) * Z + r[..., 2])
+    for i in range(8):
+        soft = soft.scatter_add(2, labs[..., i:i + 1], ws[..., i:i + 1])
+    rr = torch.round(_clip(r.detach(), X, Y, Z)).long()  # half to even, like jnp.round
+    hard = torch.gather(labels.reshape(B, N).long(), 1, (rr[..., 0] * Y + rr[..., 1]) * Z + rr[..., 2])
     return soft.reshape(B, X, Y, Z, num_classes), hard.reshape(B, X, Y, Z).to(torch.int32)
 
 
@@ -465,10 +486,15 @@ class _WarpLabels(torch.autograd.Function):
         ctx.save_for_backward(labels, flow)
         ctx.num_classes = num_classes
         ctx.mark_non_differentiable(hard)
+        # no zeros for the cotangent of ``hard`` (a fill of B*X*Y*Z int32 at
+        # every backward): it is never used
+        ctx.set_materialize_grads(False)
         return soft, hard
 
     @staticmethod
     def backward(ctx, gsoft, _ghard):
+        if gsoft is None:
+            return None, None, None
         labels, flow = ctx.saved_tensors
         B, X, Y, Z = labels.shape
         gflow = torch.empty_like(flow)
@@ -521,3 +547,239 @@ def warp_onehot(labels: torch.Tensor, flow: torch.Tensor, num_classes: int,
                 impl=None) -> torch.Tensor:
     """Unbatched :func:`warp_onehot_batch`."""
     return warp_labels_soft_hard(labels, flow, num_classes, impl)[0]
+
+
+# ---- the training loss's Dice of the warped one-hot, fused ----------------------
+#
+# With t = the target map and p = warp_onehot(labels, flow), per (b, l):
+# I = sum_v keep t p, P = sum_v keep p, T = sum_v keep t, S = T + P, and the
+# loss d = -mean_{b,l} safe_div(2 I, S) (``losses.dice_loss``; with zeropad
+# ``dice_loss_zeropad``: keep = 0 where t[..., 0] >= 1 or p[..., 0] >= 1, and
+# label 0 left out of the mean). Its cotangent is affine in t:
+# dd/dp[b, v, l] = keep (alpha[b, l] t[b, v, l] + beta[b, l]) with
+# alpha = -2 / (n S), beta = 2 I / (n S^2), n the count of (b, l) in the mean,
+# both 0 where S = 0 (safe_div's zero gradient) and for label 0 with zeropad.
+# So the forward needs the 3 B L sums and the backward 2 B L coefficients and
+# t at each voxel's corner labels: the (B, X, Y, Z, L) prediction and its
+# cotangent are never formed. K6's second entry sums, K7's second entry forms
+# the cotangent in registers and contracts it with the weights' derivatives.
+
+_DICE_BLOCKS = 512  # blocks per batch element, at most (csrc/warp_labels.cu)
+_DICE_SMEM_MAX = 100 * 1024
+
+
+def _dice_smem(tv: int, num_classes: int) -> int:
+    """Bytes of shared memory a block of the Dice forward takes
+    (``csrc/warp_labels.cu::dice_fwd_smem``)."""
+    return 4 * max(3 * (tv * num_classes + 8) + 2 * (3 * tv + 4), 256 * 24)
+
+
+def _dice_plan(n_voxels: int, num_classes: int):
+    """The Dice forward's tile voxels and blocks per batch element, both
+    functions of the volume and the label count alone (so a batch element's
+    sums do not depend on the batch): ``(TV, G)``."""
+    tv = 128
+    while tv > 32 and _dice_smem(tv, num_classes) > _DICE_SMEM_MAX:
+        tv //= 2
+    return tv, min(-(-n_voxels // tv), _DICE_BLOCKS)
+
+
+def _check_dice(labels, flow, t, num_classes):
+    _check_labels(labels, flow, num_classes)
+    if tuple(t.shape) != (*labels.shape, num_classes):
+        raise ValueError(
+            f"the target map {tuple(t.shape)} must be (B, X, Y, Z, L) = "
+            f"{(*labels.shape, num_classes)}")
+
+
+def _dice_keep_plain(tf, labs, ws, zeropad):
+    """``keep (B, N)`` float32: 1, or with ``zeropad`` 0 where ``t[..., 0] >=
+    1`` or ``p[..., 0] >= 1``, ``p[..., 0]`` summed corner by corner as K6
+    sums it (so the test flips on the same voxels)."""
+    if not zeropad:
+        return torch.ones(tf.shape[:2], dtype=torch.float32, device=tf.device)
+    p0 = torch.zeros(tf.shape[:2], dtype=torch.float32, device=tf.device)
+    for i in range(8):
+        p0 = p0 + torch.where(labs[..., i] == 0, ws[..., i], 0.0)
+    return (~((tf[..., 0] >= 1.0) | (p0 >= 1.0))).float()
+
+
+def _dice_sums_plain(labels, flow, t, num_classes, zeropad):
+    """Plain version of K6's Dice entry: ``(B, L, 3)`` float32, the sums
+    ``(I, P, T)`` of each (b, l), from the corner weights (``scatter_add``
+    into the corners' labels) and summed in float64."""
+    B = labels.shape[0]
+    L = num_classes
+    with torch.no_grad():
+        _, _, labs, ws = _label_corners_plain(labels, flow)
+        tf = t.reshape(B, -1, L).float()
+        keep = _dice_keep_plain(tf, labs, ws, zeropad)
+        valid = (labs >= 0) & (labs < L)
+        lc = torch.where(valid, labs, 0)
+        kw = (torch.where(valid, ws, 0.0) * keep[..., None]).double()
+        zeros = torch.zeros((B, L), dtype=torch.float64, device=flow.device)
+        P = zeros.scatter_add(1, lc.reshape(B, -1), kw.reshape(B, -1))
+        I = zeros.scatter_add(1, lc.reshape(B, -1),
+                              (kw * tf.gather(2, lc).double()).reshape(B, -1))
+        T = (tf.double() * keep.double()[..., None]).sum(1)
+        return torch.stack([I, P, T], -1).float()
+
+
+def _clip_grad_plain(r, hi):
+    """Derivative of ``min(max(r, 0), hi)``: one half at equality with a bound."""
+    lo_d = torch.where(r > 0, 1.0, torch.where(r == 0, 0.5, 0.0))
+    m = torch.clamp(r, min=0.0)
+    return lo_d * torch.where(m < hi, 1.0, torch.where(m == hi, 0.5, 0.0))
+
+
+def _dice_flow_grad_plain(labels, flow, t, coef, num_classes, zeropad):
+    """Plain version of K7's Dice entry: the flow gradient ``(B, X, Y, Z,
+    3)`` of sum_{v,l} g p with ``g = keep (alpha t + beta)`` taken at each
+    corner's label (``gather``), through the weights' derivatives and the
+    clip's."""
+    B, X, Y, Z = labels.shape
+    L = num_classes
+    with torch.no_grad():
+        r, w1, labs, ws = _label_corners_plain(labels, flow)
+        tf = t.reshape(B, -1, L).float()
+        keep = _dice_keep_plain(tf, labs, ws, zeropad)
+        valid = (labs >= 0) & (labs < L)
+        lc = torch.where(valid, labs, 0)
+        flat = lc.reshape(B, -1)
+        alpha = coef[..., 0].float().gather(1, flat).reshape(lc.shape)
+        beta = coef[..., 1].float().gather(1, flat).reshape(lc.shape)
+        gc = torch.where(valid, alpha * tf.gather(2, lc) + beta, 0.0) * keep[..., None]
+        w = [(1.0 - w1[..., a], w1[..., a]) for a in range(3)]
+        gx = gy = gz = 0.0
+        for i in range(8):
+            dx, dy, dz = i >> 2, (i >> 1) & 1, i & 1
+            gx = gx + gc[..., i] * (1.0 if dx else -1.0) * w[1][dy] * w[2][dz]
+            gy = gy + gc[..., i] * (1.0 if dy else -1.0) * w[0][dx] * w[2][dz]
+            gz = gz + gc[..., i] * (1.0 if dz else -1.0) * w[0][dx] * w[1][dy]
+        hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=flow.device)
+        g = torch.stack([gx, gy, gz], -1) * _clip_grad_plain(r, hi)
+        return g.reshape(B, X, Y, Z, 3)
+
+
+def _kernel_labels(labels, flow, t, num_classes, what):
+    """Checks of a Dice entry's CUDA path; ``labels`` as the kernel takes them."""
+    if labels.device != flow.device or t.device != flow.device:
+        raise ValueError(f"{what}: labels, flow and target map on different devices")
+    if not 1 <= num_classes <= 256:
+        raise ValueError(f"{what}: the kernel takes 1 to 256 labels, got {num_classes}")
+    if math.prod(labels.shape[1:]) >= 2**31:
+        raise ValueError(f"{what}: volume too large for 32-bit voxel indices")
+    return labels.to(torch.int32) if labels.dtype == torch.int64 else labels
+
+
+def warp_labels_dice_sums(labels: torch.Tensor, flow: torch.Tensor, t: torch.Tensor,
+                          num_classes: int, zeropad: bool = False, impl=None) -> torch.Tensor:
+    """The Dice sums of ``t`` against the warp of ``one_hot(labels)`` by
+    ``flow``, without forming the warp: ``(B, L, 3)`` float32 holding, per
+    batch element and label, ``I = sum keep t p``, ``P = sum keep p`` and ``T =
+    sum keep t`` (see the section's note). K6's second entry on the card."""
+    _check_dice(labels, flow, t, num_classes)
+    if not use_kernel(flow, impl):
+        return _dice_sums_plain(labels, flow, t, num_classes, zeropad)
+    labels = _kernel_labels(labels, flow, t, num_classes, "warp_labels_dice_sums").contiguous()
+    flow = flow.detach().float().contiguous()
+    t = t.detach().float().contiguous()
+    B, X, Y, Z = labels.shape
+    tv, blocks = _dice_plan(X * Y * Z, num_classes)
+    partial = torch.empty(B * blocks * num_classes * 3, dtype=torch.float64, device=flow.device)
+    sums = torch.empty((B, num_classes, 3), dtype=torch.float32, device=flow.device)
+    with kernels.on_device_of(flow):
+        kernels.WARP_LABELS.launch_entry(
+            "warp_labels_dice_fwd_launch", labels.data_ptr(), flow.data_ptr(), t.data_ptr(),
+            partial.data_ptr(), sums.data_ptr(), B, X, Y, Z, num_classes, tv, blocks,
+            int(zeropad), int(labels.dtype == torch.uint8), kernels.stream_of(flow))
+    return sums
+
+
+def warp_labels_dice_flow_grad(labels: torch.Tensor, flow: torch.Tensor, t: torch.Tensor,
+                               coef: torch.Tensor, num_classes: int, zeropad: bool = False,
+                               impl=None) -> torch.Tensor:
+    """The gradient w.r.t. ``flow`` of ``sum g * warp_onehot(labels, flow)``
+    for the cotangent ``g = keep (alpha t + beta)``, ``coef (B, L, 2)`` holding
+    ``(alpha, beta)``: ``(B, X, Y, Z, 3)`` float32. K7's second entry on the
+    card, which reads ``t`` only at each voxel's distinct corner labels."""
+    _check_dice(labels, flow, t, num_classes)
+    if tuple(coef.shape) != (labels.shape[0], num_classes, 2):
+        raise ValueError(f"coef {tuple(coef.shape)} must be (B, L, 2)")
+    if not use_kernel(flow, impl):
+        return _dice_flow_grad_plain(labels, flow, t, coef, num_classes, zeropad)
+    labels = _kernel_labels(labels, flow, t, num_classes, "warp_labels_dice_flow_grad").contiguous()
+    flow = flow.detach().float().contiguous()
+    t = t.detach().float().contiguous()
+    coef = coef.detach().float().contiguous()
+    B, X, Y, Z = labels.shape
+    gflow = torch.empty_like(flow)
+    with kernels.on_device_of(flow):
+        kernels.WARP_LABELS_BWD.launch_entry(
+            "warp_labels_dice_bwd_launch", t.data_ptr(), labels.data_ptr(), flow.data_ptr(),
+            coef.data_ptr(), gflow.data_ptr(), B, X, Y, Z, num_classes, int(zeropad),
+            int(labels.dtype == torch.uint8), kernels.stream_of(flow))
+    return gflow
+
+
+def dice_coefficients(sums: torch.Tensor, zeropad: bool = False):
+    """From the sums ``(B, L, 3)`` of :func:`warp_labels_dice_sums`: the
+    loss (a 0-d tensor, ``losses.dice_loss`` or ``dice_loss_zeropad``) and
+    ``coef (B, L, 2)``, its cotangent's ``(alpha, beta)``. On the sums'
+    device, without a host synchronisation."""
+    I, P, T = sums.unbind(-1)
+    S = T + P
+    ok = S > 0
+    den = torch.where(ok, S, 1.0)
+    ratio = torch.where(ok, 2.0 * I / den, 0.0)
+    first = 1 if zeropad else 0
+    n = ratio.shape[0] * (ratio.shape[1] - first)
+    loss = -ratio[:, first:].mean()
+    inv = torch.where(ok, 2.0 / (n * den), 0.0)
+    coef = torch.stack([-inv, inv * I / den], -1)
+    if zeropad:
+        coef[:, 0] = 0.0
+    return loss, coef
+
+
+class _WarpOnehotDice(torch.autograd.Function):
+    """The Dice loss of a target map against the warped one-hot: K6's and
+    K7's Dice entries on the card, their plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, labels, flow, t, num_classes, zeropad):
+        sums = warp_labels_dice_sums(labels, flow, t, num_classes, zeropad)
+        loss, coef = dice_coefficients(sums, zeropad)
+        ctx.save_for_backward(labels, flow, t, coef)
+        ctx.num_classes, ctx.zeropad = num_classes, zeropad
+        return loss
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        labels, flow, t, coef = ctx.saved_tensors
+        gflow = warp_labels_dice_flow_grad(labels, flow, t, coef * g, ctx.num_classes,
+                                           ctx.zeropad)
+        return None, gflow, None, None, None
+
+
+def warp_onehot_dice_batch(labels: torch.Tensor, flow: torch.Tensor, map2: torch.Tensor,
+                           num_classes: int, zeropad: bool = False, impl=None) -> torch.Tensor:
+    """``(dice_loss_zeropad if zeropad else dice_loss)(map2,
+    warp_onehot_batch(labels, flow, num_classes))``, differentiable w.r.t.
+    ``flow``, without the warped map or its cotangent: the forward takes the
+    Dice sums (K6's Dice entry), the backward forms the cotangent from them
+    and ``map2`` inside K7's Dice entry. ``impl="plain"`` is the dense
+    composition through the plain versions, the reference; on the CPU the
+    fused function runs its kernels' plain versions."""
+    _check_dice(labels, flow, map2, num_classes)
+    if impl == "plain":
+        pred = warp_onehot_batch(labels, flow, num_classes, impl="plain")
+        return (dice_loss_zeropad if zeropad else dice_loss)(map2, pred)
+    use_kernel(flow, impl)  # refuses an unknown impl
+    if needs_grad(map2):
+        raise NotImplementedError(
+            "warp_onehot_dice_batch has no gradient w.r.t. the target map: use impl='plain'")
+    return _WarpOnehotDice.apply(labels.contiguous(), flow.float().contiguous(),
+                                 map2.detach().float().contiguous(), int(num_classes),
+                                 bool(zeropad))

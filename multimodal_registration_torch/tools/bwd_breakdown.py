@@ -19,6 +19,10 @@ step's forward does, and drops it, so the difference is the backward alone.
   w.r.t. ``flow`` (K2, K5);
 * ``onehot``: ``warp_onehot(labels, flow, 26)``, gradient w.r.t. ``flow``
   (K6, K7);
+* ``onehot_dice`` (the port's own; the JAX script has no such row): the
+  training loss's Dice, ``warp_onehot_dice_batch(labels, flow, t, 26,
+  zeropad=True)`` against a soft target, gradient w.r.t. ``flow`` (K6's and
+  K7's Dice entries: neither the warped map nor its cotangent is formed);
 * ``tail``: Dice (zero-pad) + Grad('l2', 0.02), gradient w.r.t. both inputs.
 
 Keys ``<component>_fwd_ms``, ``_fwd_bwd_ms``, ``_bwd_ms``; one JSON line a
@@ -41,11 +45,11 @@ from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
 from multimodal_registration_torch.ops.field import compose_fields_batch
 from multimodal_registration_torch.ops.integrate import integrate_svf
 from multimodal_registration_torch.ops.resize import rescale_field
-from multimodal_registration_torch.ops.warp import warp_onehot
+from multimodal_registration_torch.ops.warp import warp_onehot, warp_onehot_dice_batch
 from multimodal_registration_torch.tools.timing import card_note, ms_per_call, note, write_result
 from multimodal_registration_torch.train.trainer import init_like_flax_
 
-COMPONENTS = ("model", "integrate", "rescale", "compose", "onehot", "tail")
+COMPONENTS = ("model", "integrate", "rescale", "compose", "onehot", "onehot_dice", "tail")
 
 
 def _gradient(scalar_fn, leaves):
@@ -118,6 +122,18 @@ def run(iters: int = 8, small: bool = False, device=None, emit=print) -> dict:
         return warp_onehot(lab, fl, L).sum()
 
     component("onehot", lambda: onehot_scalar(flow1), _gradient(onehot_scalar, [flow1]))
+
+    # the training loss's Dice as the step takes it: fused, against the soft
+    # warp of the same labels by half the field
+    with torch.no_grad():
+        tmap = warp_onehot(lab, flow1 * 0.5, L)[None]
+
+    def onehot_dice_scalar(fl):
+        return warp_onehot_dice_batch(lab[None], fl[None], tmap, L, zeropad=True)
+
+    component("onehot_dice", lambda: onehot_dice_scalar(flow1),
+              _gradient(onehot_dice_scalar, [flow1]))
+    del tmap
 
     a = t(np.abs(rng.normal(size=(1, *shape, L))))
     b = leaf(t(np.abs(rng.normal(size=(1, *shape, L)))))

@@ -44,7 +44,10 @@ def step_launches(batch: int) -> dict:
     """Kernel launches of one training step at ``batch`` on one device: K2
     x11 (the generators' integration and the model's, 5 each, batched, and
     the compose), K4 x4 (the encoder's pools), K5 x6 (their backward), K6 x
-    2 a sample (the two syntheses) + 1 (the loss's batched label warp), K7 x1."""
+    2 a sample (the two syntheses' label warps) + 1 (the loss's Dice sums,
+    K6's Dice entry, batched: the warped map is not formed), K7 x1 (the
+    loss's flow gradient, K7's Dice entry, its cotangent formed in the
+    kernel)."""
     want = dict.fromkeys(kernels.launch_counts(), 0)
     want.update(warp_trilinear=11, max_pool_2x_bwd=4, warp_trilinear_bwd=6,
                 warp_labels_soft_hard=2 * batch + 1, warp_labels_bwd=1)

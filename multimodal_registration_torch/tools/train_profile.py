@@ -46,8 +46,8 @@ K_NAMES = {
     "K4": ("pool_bwd_kernel",),
     "K5": ("warp_bwd_kernel", "warp_bwd_tiled_kernel", "warp_bwd_finish_kernel",
            "self_warp_add_bwd_kernel", "self_warp_add_finish_kernel"),
-    "K6": ("warp_labels_kernel",),
-    "K7": ("warp_labels_bwd_kernel",),
+    "K6": ("warp_labels_kernel", "warp_labels_dice_fwd_kernel", "warp_labels_dice_reduce_kernel"),
+    "K7": ("warp_labels_bwd_kernel", "warp_labels_dice_bwd_kernel"),
     "K8": ("conv3_int8_wgmma_kernel", "quantize_act_kernel"),
 }
 _K_RE = [(k, re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(names) + r")(?![A-Za-z0-9_])"))

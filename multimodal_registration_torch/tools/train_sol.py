@@ -20,7 +20,12 @@ integrated warp, and three times it with the backward (a conv's data and
 weight gradients each cost its forward).
 
 The row names are the JAX script's; the port's bodies are its own (K6 for
-the label warp, a gather for the intensity lookup). Each row is timed as the
+the label warp, a gather for the intensity lookup). One row is the port's
+own, last: the training loss's Dice, fused (K6's and K7's Dice entries),
+forward and gradient w.r.t. the flow, its floor the forward's bytes (the
+target map, the flow and the labels read) plus the backward's least bytes
+(one target entry a voxel, the flow and the labels read, the gradient
+written). Each row is timed as the
 best of 2 blocks of ``--iters`` calls (half as many, at least 2, for the
 model) after a warm-up call, chained on one ``torch.Generator`` where it
 draws. Prints the table, then writes ``{"workload", "labels", "svf_int_res",
@@ -40,7 +45,7 @@ from multimodal_registration_torch.device import full_fp32_convs, resolve_device
 from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
 from multimodal_registration_torch.ops.integrate import integrate_svf
 from multimodal_registration_torch.ops.resize import rescale_field
-from multimodal_registration_torch.ops.warp import warp_labels_soft_hard
+from multimodal_registration_torch.ops.warp import warp_labels_soft_hard, warp_onehot_dice_batch
 from multimodal_registration_torch.synth.augment import random_flips
 from multimodal_registration_torch.synth.image_engine import (
     ImageEngineConfig,
@@ -56,6 +61,7 @@ from multimodal_registration_torch.train.trainer import init_like_flax_
 
 F32 = 4
 HBM = roofline.PEAK_HBM
+DICE_ROW = "dice loss, fused (fwd + grad wrt flow)"  # the port's own, after the JAX rows
 
 
 def stream_s(nbytes: float) -> float:
@@ -171,6 +177,22 @@ def run(iters: int = 8, small: bool = False, device=None, emit=print) -> dict:
             n_model)
     add("model fwd+bwd (grad wrt params)", f_bwd, 3 * fwd_floor, "3x the forward's roofline",
         n_model)
+
+    # the port's own row: the training loss's Dice, fused, forward and flow
+    # gradient, against a soft target; its floor the forward's bound (t, the
+    # flow and the labels read) and the backward's least bytes (one t entry a
+    # voxel, the flow and the labels read, the gradient written)
+    with torch.no_grad():
+        tmap = warp_labels_soft_hard(lab, phi * 0.5, L)[0][None]
+    fl = phi.detach().clone().requires_grad_()
+
+    def f_dice():
+        d = warp_onehot_dice_batch(lab[None], fl[None], tmap, L)
+        return torch.autograd.grad(d, fl)
+
+    add(DICE_ROW, f_dice, stream_s(V * (L * F32 + 3 * F32 + F32) + V * (F32 + 3 * F32 + F32 + 3 * F32)),
+        "K6 + K7 Dice bounds (bytes)")
+    del tmap
 
     emit(f"\nworkload {shape} / {L} labels, svf_int_res={r}  (per-image synthesis stages; "
          f"a step synthesizes 2 images)\n")

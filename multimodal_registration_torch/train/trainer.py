@@ -26,7 +26,8 @@ the other devices before the next step.
 Kernels on this path, per step at batch B on one device: K2 x11 (5 for the
 generators' integration, 5 for the model's, 1 compose, each batched), K5 x6
 (their backward; the generators' need none), K6 x2B+1 (two synthesis warps a
-sample and the loss's batched one), K7 x1, K4 x4 (the pools of enc_0..enc_3). K1 and K3 are inference kernels: enc_0
+sample, and the loss's Dice sums through K6's Dice entry), K7 x1 (the Dice
+loss's flow gradient through K7's Dice entry), K4 x4 (the pools of enc_0..enc_3). K1 and K3 are inference kernels: enc_0
 runs unfused and ``moved`` is not computed.
 
 Differences from the JAX trainer: checkpoints are the flat ``.npz``
@@ -45,14 +46,14 @@ import torch
 from torch import nn
 
 from multimodal_registration_torch.device import full_fp32_convs
-from multimodal_registration_torch.losses import dice_loss, dice_loss_zeropad, grad_loss
+from multimodal_registration_torch.losses import grad_loss
 from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
 from multimodal_registration_torch.models.weights import params_from_jax, params_to_jax
 from multimodal_registration_torch.ops.field import compose_fields_batch
 from multimodal_registration_torch.ops.integrate import integrate_svf_batch
 from multimodal_registration_torch.ops.pool import TIES
 from multimodal_registration_torch.ops.resize import rescale_field
-from multimodal_registration_torch.ops.warp import warp_onehot_batch
+from multimodal_registration_torch.ops.warp import warp_onehot_dice_batch
 from multimodal_registration_torch.parallel.mesh import make_mesh, mesh_devices, replicate
 from multimodal_registration_torch.synth.augment import maybe_zero_borders, random_flips
 from multimodal_registration_torch.synth.image_engine import (
@@ -215,8 +216,10 @@ def loss_from_batch(model: VxmDense, batch: dict, engine_cfg: ImageEngineConfig,
         if cfg.compose_payload_dtype:
             phi1 = phi1.to(getattr(torch, cfg.compose_payload_dtype))
         total_field = compose_fields_batch(phi1, out["flow_fullres"], impl=impl).float()
-    pred = warp_onehot_batch(batch["raw1"], total_field, engine_cfg.num_labels, impl=impl)
-    d = (dice_loss_zeropad if use_zeropad else dice_loss)(batch["map2"], pred)
+    # the Dice of the warped source labels, fused: neither the warped one-hot
+    # nor its cotangent is formed (impl="plain": the dense composition)
+    d = warp_onehot_dice_batch(batch["raw1"], total_field, batch["map2"], engine_cfg.num_labels,
+                               zeropad=use_zeropad, impl=impl)
     g = grad_loss(out["warp"] if grad_on_warp else out["flow_fullres"], "l2", cfg.reg_param)
     loss = d + 1.0 + g
     return loss, {"dice_loss": d.detach(), "grad_loss": g.detach(), "loss": loss.detach()}

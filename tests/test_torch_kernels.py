@@ -18,8 +18,13 @@ through the plain forward, and K5's volume gradient is summed with atomics in
 an order that changes from run to run: float32 atol/rtol 1e-5; with a bf16
 payload the plain version scatters in bf16 while K5 sums in float32 and
 rounds once, so they agree within a few bf16 ulp of the largest gradient.
-K6: hard labels exact; soft 1e-6 (the plain version's ``scatter_add`` uses
-atomics on the card).
+K6: hard labels exact; soft 1e-6 (both sum each voxel's corner weights one
+at a time, in (dx, dy, dz) order).
+
+The Dice entries of K6 and K7 (``warp_onehot_dice_batch``): the sums within
+1e-5 relative of their plain version (which sums in float64), the flow
+gradient within 1e-5 of its largest entry; the fused loss against the dense
+composition likewise; the sums bit for bit run to run and whatever the batch.
 
 The fused squaring step (``self_warp_add_batch``, a second entry of K2 and of
 K5): the forward repeats the cast, the warp, the cast back and the add bit for
@@ -404,6 +409,90 @@ def test_k6_hard_labels_round_half_to_even(cuda_device):
     assert torch.equal(hard, phard)
     assert int(hard[0, 2, 2, 2]) == int(labels[0, 2, 2, 2])  # 2.5 rounds to 2
     assert int(hard[0, 1, 1, 1]) == int(labels[0, 2, 2, 2])  # 1.5 rounds to 2
+
+
+def _dice_inputs(device, ldtype, L, shape=(2, 11, 9, 13), offset=True):
+    """Source labels (int32 ones with a few outside [0, L)), a flow, and a
+    soft target map whose data starts 4 bytes past a 16-byte boundary (with
+    ``offset``), so the forward's staging takes its 4-byte head and tail."""
+    import numpy as np
+
+    rng = np.random.default_rng(60)
+    lab = rng.integers(0, L, shape)
+    if ldtype == torch.int32:
+        lab.reshape(-1)[::97] = L  # no channel
+        lab.reshape(-1)[5::89] = -1
+    labels = torch.as_tensor(lab, dtype=ldtype, device=device)
+    flow = t(rand((*shape, 3), 61, low=-5.0, high=5.0)).to(device)
+    trg = torch.as_tensor(rng.integers(0, L, shape), dtype=torch.uint8, device=device)
+    soft = tw.warp_onehot_batch(trg, t(rand((*shape, 3), 62, low=-1.0, high=1.0)).to(device), L)
+    if offset:
+        buf = torch.empty(soft.numel() + 1, device=device)
+        buf[1:] = soft.reshape(-1)
+        soft = buf[1:].view(soft.shape)
+    return labels, flow, soft
+
+
+@pytest.mark.parametrize("zeropad", [False, True])
+@pytest.mark.parametrize("L", [7, 26, 100])
+@pytest.mark.parametrize("ldtype", [torch.uint8, torch.int32])
+def test_k6_k7_dice_entries_match_plain(cuda_device, ldtype, L, zeropad):
+    """K6's Dice entry (the sums) within 1e-5 relative of its plain version
+    (float64 sums; the kernel sums in float32 per thread and tile, in
+    float64 across them), K7's (the flow gradient) within 1e-5 of the
+    largest gradient; L = 100 takes tiles of 64 voxels."""
+    labels, flow, map2 = _dice_inputs(cuda_device, ldtype, L)
+    b6, b7 = kernels.WARP_LABELS.launches, kernels.WARP_LABELS_BWD.launches
+    e6 = kernels.WARP_LABELS.entry_launches.get("warp_labels_dice_fwd_launch", 0)
+    sums = tw.warp_labels_dice_sums(labels, flow, map2, L, zeropad)
+    psums = tw.warp_labels_dice_sums(labels, flow, map2, L, zeropad, impl="plain")
+    coef = t(rand((2, L, 2), 63)).to(cuda_device)
+    g = tw.warp_labels_dice_flow_grad(labels, flow, map2, coef, L, zeropad)
+    pg = tw.warp_labels_dice_flow_grad(labels, flow, map2, coef, L, zeropad, impl="plain")
+    torch.cuda.synchronize()
+    assert kernels.WARP_LABELS.launches == b6 + 1 and kernels.WARP_LABELS_BWD.launches == b7 + 1
+    assert kernels.WARP_LABELS.entry_launches["warp_labels_dice_fwd_launch"] == e6 + 1
+    torch.testing.assert_close(sums, psums, atol=1e-6, rtol=1e-5)
+    m = float(pg.abs().max())
+    assert m > 0.1
+    torch.testing.assert_close(g, pg, atol=1e-5 * m, rtol=1e-5)
+
+
+def test_k6_dice_entry_is_deterministic_and_batch_independent(cuda_device):
+    """No atomics: the sums repeat bit for bit, and a batch element's sums do
+    not depend on the batch around it (the blocks are a function of the
+    volume and the label count)."""
+    labels, flow, map2 = _dice_inputs(cuda_device, torch.uint8, 26, (2, 40, 36, 52), False)
+    a = tw.warp_labels_dice_sums(labels, flow, map2, 26, True)
+    b = tw.warp_labels_dice_sums(labels, flow, map2, 26, True)
+    one = tw.warp_labels_dice_sums(labels[1:], flow[1:], map2[1:], 26, True)
+    assert torch.equal(a, b) and torch.equal(a[1:], one)
+
+
+@pytest.mark.parametrize("zeropad", [False, True])
+def test_fused_dice_matches_the_dense_path(cuda_device, zeropad):
+    """``warp_onehot_dice_batch`` on the card (K6's and K7's Dice entries)
+    against the dense composition through the plain versions and through K6
+    and K7: the loss within 1e-5 relative, the flow gradient within 1e-5 of
+    its largest entry."""
+    L = 26
+    labels, flow, map2 = _dice_inputs(cuda_device, torch.uint8, L, (2, 24, 20, 32))
+    sides = {}
+    for name, fn in (
+        ("fused", lambda f: tw.warp_onehot_dice_batch(labels, f, map2, L, zeropad)),
+        ("plain", lambda f: tw.warp_onehot_dice_batch(labels, f, map2, L, zeropad, impl="plain")),
+        ("dense kernels", lambda f: (tw.dice_loss_zeropad if zeropad else tw.dice_loss)(
+            map2, tw.warp_onehot_batch(labels, f, L))),
+    ):
+        f = flow.clone().requires_grad_()
+        d = fn(f)
+        (d * 0.7).backward()
+        sides[name] = (d.detach(), f.grad)
+    d, g = sides["fused"]
+    for name in ("plain", "dense kernels"):
+        dp, gp = sides[name]
+        torch.testing.assert_close(d, dp, atol=0, rtol=1e-5)
+        torch.testing.assert_close(g, gp, atol=1e-5 * float(gp.abs().max()), rtol=1e-5)
 
 
 def _fused_fields(device):

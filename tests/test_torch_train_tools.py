@@ -274,11 +274,15 @@ def test_bwd_breakdown_runs_small_with_the_jax_scripts_keys():
     tree = _tree("bwd_breakdown.py")
     assert set(_port_flags(bwd_breakdown.build_parser())) - PORT_ONLY == _dashed_constants(tree)
     assert bwd_breakdown.build_parser().get_default("iters") == _main_default(tree) == 8
-    want = _subscript_keys(tree, "res") - {"tail_error"}
+    # the port's own component: the training loss's fused Dice
+    own = {f"onehot_dice_{k}" for k in ("fwd_ms", "fwd_bwd_ms", "bwd_ms")}
+    want = _subscript_keys(tree, "res") - {"tail_error"} | own
     res, lines = _lines(bwd_breakdown.main, ["1", "--small", "--device", "cpu"])
     assert set(res) == want and lines[-1] == res and res["shape"] == [32, 32, 48]
-    assert {k.rsplit("_", 3)[0] for k in want if k.endswith("_bwd_ms")} >= set(
-        bwd_breakdown.COMPONENTS)
+    assert {k.rsplit("_", 3)[0] for k in want - own if k.endswith("_bwd_ms")} >= set(
+        bwd_breakdown.COMPONENTS) - {"onehot_dice"}
+    assert bwd_breakdown.COMPONENTS.index("onehot_dice") == bwd_breakdown.COMPONENTS.index(
+        "onehot") + 1
     for c in bwd_breakdown.COMPONENTS:
         assert res[f"{c}_fwd_ms"] > 0 and res[f"{c}_fwd_bwd_ms"] > 0
         assert res[f"{c}_bwd_ms"] == res[f"{c}_fwd_bwd_ms"] - res[f"{c}_fwd_ms"]
@@ -333,6 +337,12 @@ def test_train_profile_categories_and_self_time():
     assert c("void (anonymous namespace)::pool_bwd_kernel<__nv_bfloat16>(...)") == "K4"
     assert c("void (anonymous namespace)::self_warp_add_bwd_kernel<true>(float const*)") == "K5"
     assert c("void (anonymous namespace)::warp_kernel<float>(...)") == "K2"
+    # the Dice entries of K6 and K7 count as their kernels
+    assert c("void (anonymous namespace)::warp_labels_dice_fwd_kernel<unsigned char>(...)") == "K6"
+    assert c("(anonymous namespace)::warp_labels_dice_reduce_kernel(double const*, float*)") == "K6"
+    assert c("void (anonymous namespace)::warp_labels_dice_bwd_kernel<unsigned char>(...)") == "K7"
+    assert c("void (anonymous namespace)::warp_labels_kernel<int>(...)") == "K6"
+    assert c("void (anonymous namespace)::warp_labels_bwd_kernel<int>(...)") == "K7"
     assert c("void tc::conv3_lrelu_pool_wgmma_kernel<4>(...)") == "K1"
     assert c("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc") == "conv"
     assert c("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, MaxOps>>") \
@@ -358,7 +368,8 @@ def test_train_sol_runs_small_with_the_jax_scripts_rows(tmp_path):
               if isinstance(n, ast.Call) and getattr(n.func, "id", None) == "add"]
     out, _ = _lines(train_sol.main, ["--small", "--iters", "1", "--device", "cpu",
                                      "--out", str(tmp_path / "sol.json")])
-    assert [r["stage"] for r in out["rows"]] == stages
+    # the JAX script's rows, then the port's own: the training loss's fused Dice
+    assert [r["stage"] for r in out["rows"]] == stages + [train_sol.DICE_ROW]
     out_keys = next(n for n in ast.walk(_funcs(tree)["main"])
                     if isinstance(n, ast.Assign) and getattr(n.targets[0], "id", "") == "out")
     assert list(out) == [k.value for k in out_keys.value.keys]
@@ -371,6 +382,8 @@ def test_train_sol_runs_small_with_the_jax_scripts_rows(tmp_path):
     rows = {r["stage"]: r for r in out["rows"]}
     assert rows["label warp (soft+hard, packed)"]["floor_ms"] == pytest.approx(
         V * (L * 4 + 4 + 12 + 4) / 3.35e12 * 1e3, rel=1e-12)
+    assert rows[train_sol.DICE_ROW]["floor_ms"] == pytest.approx(
+        V * (L * 4 + 12 + 4 + 4 + 12 + 4 + 12) / 3.35e12 * 1e3, rel=1e-12)
     assert rows["svf integrate (5 sq, /4 grid)"]["floor_ms"] == pytest.approx(
         5 * (V // 64) * 3 * 4 * 2 / 3.35e12 * 1e3, rel=1e-12)
     fwd = rows["model fwd (U-Net+int, to warp)"]["floor_ms"]
@@ -409,3 +422,19 @@ def test_tools_run_on_the_gpu_unless_asked_for_the_cpu(tool, argv, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main(argv)
+
+
+def test_smoke_in_turns_train_mode_runs_the_tools_flags():
+    """``smoke_in_turns --train`` starts ``train_bench`` and ``train_profile``
+    with flags their parsers take, phase 13a's configurations among them."""
+    from multimodal_registration_torch.tools import smoke_in_turns
+
+    parsers = {f"multimodal_registration_torch.tools.{m.__name__.rsplit('.', 1)[1]}":
+               m.build_parser() for m in (train_bench, train_profile)}
+    runs = {}
+    for name, argv in smoke_in_turns.TRAIN:
+        assert argv[0] == "-m"
+        runs[name] = parsers[argv[1]].parse_args(argv[2:])
+    assert [(a.batch, a.width, a.iters, a.blocks) for k, a in runs.items()
+            if k.startswith("train_bench")] == [(1, 0, 6, 3), (2, 0, 6, 3), (1, 256, 6, 3)]
+    assert runs["train_profile"].steps == 3
