@@ -157,7 +157,34 @@ Phases (any failure exits non-zero):
           measured ms;
      13d. ``pipeline_throughput --subjects 3 --configs
           default,noprefetch,jobs2``: every subject ok, subjects/min;
- 14. the report, and the card's name and power limit.
+ 14. the studies ``benchmarks/`` held only in JAX, through the port's tools
+     (``multimodal_registration_torch/tools/``), budget 180 s (held on the
+     card), ``benchmarks/`` hashed before and after, nothing caught:
+     14a. ``ablate`` at 192^3: four positive rows; launches per chain call:
+          K1 x1 (the U-Net, no gradient), K2's fused step x5 (integrate), K2
+          x1 (warp), none (rescale);
+     14b. ``unet_bwd_probe 6`` at 160x160x192: five sections, each with
+          finite positive ``_fwd_ms`` and ``_fwd_bwd_ms`` and no ``_error``;
+          K4 launches 4 in a forward and backward of ``unet_full``, 1 of
+          ``first_convrpool``, none of ``first_convpool`` (``F.max_pool3d``);
+     14c. ``learn_ref_workload``, two legs in one temp ``--out-dir``: 200
+          steps warm from ``learned_ref`` (a fresh log), then 100 resuming
+          its own checkpoint: steps 0, 200, 300; step 0's Dice and NMI above
+          the identity's; Dice at step 300 within 0.01 of step 0's;
+     14d. ``learn_ref_workload --width 256``, 20 steps warm from the w256
+          checkpoint: a finite loss, step 0 above the identity;
+     14e. ``learn_model1_workload 200`` warm from ``learned_model1``: step 0's
+          Dice above the identity's in both regimes (``smooth``, ``affine``),
+          the ``smooth`` Dice at step 200 within 0.01 of step 0's;
+     14f. ``cascade_folding_probe`` then ``cascade_smoothing_sweep`` on sub-02
+          at 160x160x192: every value finite, the numpy compose's folding
+          within 0.01 points of ``compose_fields``', step 1's folding at
+          sigma 1.5 and 3 at most sigma 0's, the int compose's Dice at every
+          sigma at least sigma 0's less 0.01;
+     14g. ``opt_affine_rotation_study``: every Dice within 0.002 and every
+          angle within 0.05 degree of ``benchmarks/opt_affine_rotation_results.json``,
+          the summary's booleans equal;
+ 15. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -3385,6 +3412,255 @@ def measurement_phase(dev, shape, timer, rehearsal, bench_numbers):
     return counts, numbers, k4_rows
 
 
+PHASE14_BUDGET_S = 180  # of the script's 1200 s
+# 14c-14e: (steps of leg 1, steps of leg 2) warm from learned_ref; w256 steps;
+# learned_model1 steps
+STUDY_LEGS, STUDY_W256_STEPS, STUDY_M1_STEPS = (200, 100), 20, 200
+STUDY_TINY = dict(in_shape=[16, 16, 16], num_labels=4, num_maps=2)  # the CPU rehearsal
+DICE_HOLD = 0.01  # 14c, 14e: Dice after the steps within this of step 0's (9b's gate)
+
+
+def benchmarks_digest() -> str:
+    """One sha256 over every file under ``benchmarks/`` (names and bytes)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    root = os.path.join(HERE, "benchmarks")
+    for dirpath, dirnames, files in os.walk(root):
+        dirnames.sort()
+        for name in sorted(files):
+            path = os.path.join(dirpath, name)
+            h.update(os.path.relpath(path, root).encode())
+            with open(path, "rb") as f:
+                for block in iter(lambda: f.read(1 << 22), b""):
+                    h.update(block)
+    return h.hexdigest()
+
+
+def _all_finite(label, doc):
+    """Every number in ``doc`` (nested dicts and lists) finite."""
+    def walk(v):
+        if isinstance(v, dict):
+            return all(walk(x) for x in v.values())
+        if isinstance(v, (list, tuple)):
+            return all(walk(x) for x in v)
+        return not isinstance(v, float) or math.isfinite(v)
+    check(walk(doc), f"{label}: a value is not finite: {json.dumps(doc)}")
+
+
+def studies_phase(dev, rehearsal, tmp):
+    """Phase 14: the studies ``benchmarks/`` held only in JAX, run through the
+    port's tools (``multimodal_registration_torch/tools/``): 14a ``ablate``,
+    14b ``unet_bwd_probe``, 14c-14d ``learn_ref_workload`` (two legs; the
+    published widths), 14e ``learn_model1_workload``, 14f
+    ``cascade_folding_probe`` and ``cascade_smoothing_sweep``, 14g
+    ``opt_affine_rotation_study``. Nothing under ``benchmarks/`` changes.
+    Returns ``{"14": launch counts of the phase}`` and its numbers (with
+    ``entries``, the phase's launches by C entry)."""
+    import torch
+
+    from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.models.unet import Unet
+    from multimodal_registration_torch.tools import (
+        ablate, cascade_folding_probe as cfp, cascade_smoothing_sweep as css,
+        learn_model1_workload as lm1, learn_ref_workload as lrw,
+        opt_affine_rotation_study as oars, unet_bwd_probe)
+
+    t_phase = time.perf_counter()
+    digest = benchmarks_digest()
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    numbers = {"entries": {}}
+
+    def counted(fn):
+        """``fn()`` with the launch counts from zero; returns ``(result,
+        counts, entry counts)`` and adds both to the phase's."""
+        kernels.reset_launch_counts()
+        out = fn()
+        c, e = kernels.launch_counts(), kernels.entry_launch_counts()
+        for k, v in c.items():
+            total[k] += v
+        for k, v in e.items():
+            numbers["entries"][k] = numbers["entries"].get(k, 0) + v
+        return out, c, e
+
+    def lines(label):
+        return lambda text: print(f"#   {label}: {text}", flush=True)
+
+    # ---- 14a. ablate at 192^3
+    t0 = time.perf_counter()
+    shape_a = (16, 16, 16) if rehearsal else ablate.SHAPE
+    print(f"# phase 14a: tools/ablate.py at {shape_a}", flush=True)
+    res, _, _ = counted(lambda: ablate.run(shape_a, dev, emit=lines("14a ablate")))
+    _positive("14a ablate", res, ablate.ROWS)
+    per_call = {}
+    with torch.inference_mode():
+        for row, (fn, x) in ablate.chains(shape_a, dev).items():
+            _, c, e = counted(lambda: fn(x))
+            per_call[row] = {k: v for k, v in {**c, **e}.items() if v}
+    print(f"#   14a launches per chain call: {json.dumps(per_call)}", flush=True)
+    want = {"unet_convs_ms": {"conv3_lrelu_pool": 1, "conv3_lrelu_pool_launch": 1},
+            "integrate5_halfres_ms": {"warp_trilinear": 5, "self_warp_add_launch": 5},
+            "warp_fullres_ms": {"warp_trilinear": 1, "warp_launch": 1},
+            "rescale_2x_ms": {}}
+    check(rehearsal or per_call == want,
+          f"14a: launches per chain call {per_call}, want K1 x1 (U-Net), K2's fused step x5 "
+          "(integrate), K2 x1 (warp), none (rescale)")
+    numbers["14a"] = {"rows": res, "launches_per_call": per_call,
+                      "s": time.perf_counter() - t0}
+
+    # ---- 14b. unet_bwd_probe 6 at 160x160x192
+    t0 = time.perf_counter()
+    small = rehearsal
+    print(f"# phase 14b: tools/unet_bwd_probe.py 6{' --small' if small else ''}", flush=True)
+    res, _, _ = counted(lambda: unet_bwd_probe.run(1 if small else 6, small, dev,
+                                                   emit=lines("14b unet_bwd_probe")))
+    check(not any(k.endswith("_error") for k in res), f"14b: a section failed: {res}")
+    _positive("14b unet_bwd_probe", res, [f"{s}_{k}_ms" for s in unet_bwd_probe.SECTIONS
+                                          for k in ("fwd", "fwd_bwd")])
+    _finite("14b unet_bwd_probe", res, [f"{s}_bwd_ms" for s in unet_bwd_probe.SECTIONS])
+    # K4's launches in one forward and backward of the sections with pools
+    shape_b = tuple(res["shape"])
+    x2 = torch.randn((1, *shape_b, 2), device=dev)
+    torch.manual_seed(0)
+    k4 = {}
+    for name, model in (
+            ("unet_full", Unet(2, (64,) * 4, (64,) * 6, nb_upsample_skips=1, device=dev)),
+            ("first_convpool", unet_bwd_probe.ConvLeaky(2, (64,), "xla", device=dev)),
+            ("first_convrpool", unet_bwd_probe.ConvLeaky(2, (64,), "reshape", device=dev))):
+        params = list(model.parameters())
+        _, c, _ = counted(lambda: torch.autograd.grad(model(x2).float().sum(), params))
+        k4[name] = c["max_pool_2x_bwd"]
+    del x2
+    print(f"#   14b K4 launches per forward and backward: {k4}", flush=True)
+    check(rehearsal or k4 == {"unet_full": 4, "first_convpool": 0, "first_convrpool": 1},
+          f"14b: K4 launches {k4}, want 4 (unet_full), 0 (F.max_pool3d), 1 (max_pool_2x)")
+    numbers["14b"] = {"rows": res, "k4_launches": k4, "s": time.perf_counter() - t0}
+
+    # ---- 14c-14e. the trajectory workloads
+    cfg_over = STUDY_TINY if rehearsal else None
+    legs = (2, 1) if rehearsal else STUDY_LEGS
+    out_dir = os.path.join(tmp, "learn_workloads")
+
+    def above_identity(label, point, base):
+        ok = point["dice"] > base["dice"] and point["nmi"] > base["nmi"]
+        print(f"#   {label}: step 0 Dice {point['dice']} NMI {point['nmi']} against the "
+              f"identity's {base['dice']} / {base['nmi']}", flush=True)
+        check(rehearsal or ok, f"{label}: step 0 is not above the identity")
+
+    t0 = time.perf_counter()
+    print(f"# phase 14c: tools/learn_ref_workload.py {legs[0]} {os.path.basename(CKPT)}, then "
+          f"{legs[1]} resuming its own checkpoint, --out-dir in a temp directory", flush=True)
+    spec = lrw.ref_spec(0)
+    log1, _, _ = counted(lambda: lrw.run(legs[0], CKPT, 0, out_dir, dev, cfg_over,
+                                         emit=lines("14c leg 1")))
+    warm2 = lrw.default_warm(spec, out_dir)
+    check(warm2 == os.path.join(out_dir, spec.ckpt), "14c: leg 2 would not resume")
+    log, _, _ = counted(lambda: lrw.run(legs[1], warm2, 0, out_dir, dev, cfg_over,
+                                        emit=lines("14c leg 2")))
+    traj = log["trajectory"]
+    steps = [p["step"] for p in traj]
+    check(steps == [0, legs[0], legs[0] + legs[1]], f"14c: trajectory steps {steps}")
+    above_identity("14c", traj[0], log["identity"])
+    drift = traj[-1]["dice"] - traj[0]["dice"]
+    print(f"#   14c Dice at step {steps[-1]} {traj[-1]['dice']} against step 0's "
+          f"{traj[0]['dice']} ({drift:+.4f}, allowed -{DICE_HOLD}); s/step "
+          f"{traj[1]['sec_per_step']} / {traj[2]['sec_per_step']}", flush=True)
+    check(rehearsal or drift >= -DICE_HOLD, "14c: Dice fell after the warm start")
+    _all_finite("14c", log)
+    numbers["14c"] = {"record": log, "s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    w_steps = 2 if rehearsal else STUDY_W256_STEPS
+    print(f"# phase 14d: tools/learn_ref_workload.py {w_steps} {os.path.basename(W256_CKPT)} "
+          "--width 256", flush=True)
+    log, _, _ = counted(lambda: lrw.run(w_steps, W256_CKPT, 256, out_dir, dev, cfg_over,
+                                        emit=lines("14d")))
+    traj = log["trajectory"]
+    check([p["step"] for p in traj] == [0, w_steps] and traj[-1]["loss"] is not None
+          and math.isfinite(traj[-1]["loss"]), f"14d: trajectory {traj}")
+    above_identity("14d", traj[0], log["identity"])
+    _all_finite("14d", log)
+    numbers["14d"] = {"record": log, "s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    m_steps = 2 if rehearsal else STUDY_M1_STEPS
+    print(f"# phase 14e: tools/learn_model1_workload.py {m_steps} "
+          f"{os.path.basename(CKPT_MODEL1)}", flush=True)
+    log, _, _ = counted(lambda: lm1.run(m_steps, CKPT_MODEL1, out_dir, dev, cfg_over,
+                                        emit=lines("14e")))
+    traj = log["trajectory"]
+    check([p["step"] for p in traj] == [0, m_steps], f"14e: trajectory {traj}")
+    for regime in lm1.SPEC.regimes:
+        above = traj[0][regime]["dice"] > log["identity"][regime]["dice"]
+        print(f"#   14e {regime}: step 0 Dice {traj[0][regime]['dice']} NMI "
+              f"{traj[0][regime]['nmi']} against the identity's {log['identity'][regime]}; "
+              f"step {m_steps} Dice {traj[-1][regime]['dice']}", flush=True)
+        check(rehearsal or above, f"14e: {regime} step 0 Dice not above the identity's")
+    drift = traj[-1]["smooth"]["dice"] - traj[0]["smooth"]["dice"]
+    check(rehearsal or drift >= -DICE_HOLD, f"14e: smooth Dice fell by {-drift:.4f}")
+    _all_finite("14e", log)
+    numbers["14e"] = {"record": log, "s": time.perf_counter() - t0}
+    check(sorted(os.listdir(out_dir)) == sorted(
+        [spec.results, spec.ckpt, lrw.ref_spec(256).results, lrw.ref_spec(256).ckpt,
+         lm1.SPEC.results, lm1.SPEC.ckpt]),
+        f"14c-14e wrote other files into --out-dir: {os.listdir(out_dir)}")
+
+    # ---- 14f. the cascade folding probe and the smoothing sweep on sub-02
+    t0 = time.perf_counter()
+    print("# phase 14f: tools/cascade_folding_probe.py, then tools/cascade_smoothing_sweep.py "
+          f"(sigmas {list(css.SIGMAS)}), sub-02{' (--quick)' if rehearsal else ''}", flush=True)
+    probe, _, _ = counted(lambda: cfp.run(rehearsal, 1, dev))
+    print(f"#   14f probe: {json.dumps(probe)}", flush=True)
+    _all_finite("14f probe", probe)
+    fold = probe["folding_pct_exported"]
+    gap = abs(fold["int_compose_numpy_vxm_check"] - fold["int_compose(reference semantics)"])
+    check(gap <= 0.01, f"14f: the numpy compose's folding is {gap} points from compose_fields'")
+    sweep, _, _ = counted(lambda: css.run(1, css.SIGMAS, dev, emit=lines("14f sweep"),
+                                          quick=rehearsal))
+    _all_finite("14f sweep", sweep)
+    rows = {r["sigma_vox_at_svf_grid"]: r for r in sweep["rows"]}
+    for sigma in (1.5, 3.0):
+        check(rows[sigma]["fold_warp1_only"] <= rows[0.0]["fold_warp1_only"],
+              f"14f: step 1's folding at sigma {sigma} above sigma 0's")
+    for sigma, r in rows.items():
+        check(r["dice_int_compose"] >= rows[0.0]["dice_int_compose"] - DICE_HOLD,
+              f"14f: Dice of the int compose at sigma {sigma} fell by more than {DICE_HOLD}")
+    numbers["14f"] = {"probe": probe, "sweep": sweep, "s": time.perf_counter() - t0}
+
+    # ---- 14g. the opt-affine rotation study against the committed record
+    t0 = time.perf_counter()
+    print("# phase 14g: tools/opt_affine_rotation_study.py against "
+          "benchmarks/opt_affine_rotation_results.json", flush=True)
+    study = oars.run(emit=lambda row: None)
+    with open(os.path.join(HERE, "benchmarks", "opt_affine_rotation_results.json")) as f:
+        committed = json.load(f)
+    worst = {"dice": 0.0, "angle": 0.0}
+    for g, w in zip(study["cases"], committed["cases"], strict=True):
+        check(g["case"] == w["case"] and set(g) == set(w), f"14g: case {g['case']}")
+        for k in w:
+            if k.startswith("dice"):
+                worst["dice"] = max(worst["dice"], abs(g[k] - w[k]))
+            elif k.startswith("residual"):
+                worst["angle"] = max(worst["angle"], abs(g[k] - w[k]))
+    print(f"#   14g largest differences to the committed file: Dice {worst['dice']}, angle "
+          f"{worst['angle']} deg; summary {json.dumps(study['summary'])}", flush=True)
+    check(worst["dice"] <= 0.002 and worst["angle"] <= 0.05,
+          "14g: the rotation study disagrees with the committed results")
+    check(all(study["summary"][k] is v for k, v in committed["summary"].items()
+              if isinstance(v, bool)), "14g: the summary's booleans differ")
+    numbers["14g"] = {"summary": study["summary"], "worst": worst,
+                      "s": time.perf_counter() - t0}
+
+    check(benchmarks_digest() == digest, "phase 14 changed something under benchmarks/")
+    numbers["total_s"] = time.perf_counter() - t_phase
+    print(f"#   phase 14: {numbers['total_s']:.1f} s of its budget of {PHASE14_BUDGET_S} s ("
+          + ", ".join(f"{k} {numbers[k]['s']:.1f} s" for k in
+                      ("14a", "14b", "14c", "14d", "14e", "14f", "14g")) + ")", flush=True)
+    check(rehearsal or numbers["total_s"] <= PHASE14_BUDGET_S,
+          f"phase 14 took {numbers['total_s']:.1f} s, over its budget of {PHASE14_BUDGET_S} s")
+    return {"14": total}, numbers
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -3747,7 +4023,13 @@ def main() -> None:
     timing["max_pool_2x_bwd"]["w256"] = k4_w256
     print(f"#   phase 13 numbers: {json.dumps(tools_numbers)}")
 
-    # ---- 14. report ----------------------------------------------------------
+    # ---- 14. the studies ------------------------------------------------------------------
+    clear_scratch()
+    with tempfile.TemporaryDirectory() as td:
+        study_launches, study_numbers = studies_phase(dev, rehearsal, td)
+    print(f"#   phase 14 numbers: {json.dumps(study_numbers)}")
+
+    # ---- 15. report ----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
     # before it: register() for K1-K3, run_training() for K4-K7, register()
     # with the published config in int8 (7d) for K8
@@ -3771,6 +4053,7 @@ def main() -> None:
             **{f"launches_{phase}": n[k.name] for phase, n in bench_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in quality_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in tools_launches.items()},
+            **{f"launches_{phase}": n[k.name] for phase, n in study_launches.items()},
             "max_abs_err": results[k.name]["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
@@ -3801,6 +4084,7 @@ def main() -> None:
             "source": f"multimodal_registration_torch/csrc/{owner.source}",
             "replaces": owner.replaces, "entry_of": owner.name,
             "launches": train_numbers["entries"].get(symbol, 0),
+            "launches_14": study_numbers["entries"].get(symbol, 0),
             "max_abs_err": results[name]["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
@@ -3844,7 +4128,14 @@ def main() -> None:
                            for arch, r in tools_numbers['13c'].items())
           + " " + " ".join(f"pipeline_{name}_subjects_per_min {c['subjects_per_min']:.4f}"
                            for name, c in tools_numbers['13d']['configs'].items())
-          + f" phase13_s {tools_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
+          + f" phase13_s {tools_numbers['total_s']:.1f} "
+          + " ".join(f"ablate_{k} {v}" for k, v in study_numbers['14a']['rows'].items()
+                     if k != "shape")
+          + f" unet_full_bwd_ms {study_numbers['14b']['rows']['unet_full_bwd_ms']} "
+          f"learn_ref_dice_step0 {study_numbers['14c']['record']['trajectory'][0]['dice']} "
+          f"learn_ref_dice_last {study_numbers['14c']['record']['trajectory'][-1]['dice']} "
+          f"fold_warp1_sigma0 {study_numbers['14f']['sweep']['rows'][0]['fold_warp1_only']} "
+          f"phase14_s {study_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

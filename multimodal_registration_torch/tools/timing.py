@@ -80,14 +80,20 @@ def note(line: str) -> None:
     print(line, file=sys.stderr, flush=True)
 
 
+def outside_benchmarks(path: str, flag: str) -> str:
+    """``path`` made absolute; raises when it lies under ``benchmarks/``."""
+    path = os.path.abspath(path)
+    if os.path.commonpath([path, BENCHMARKS]) == BENCHMARKS:
+        raise ValueError(f"{flag} {path}: the tools never write under {BENCHMARKS}")
+    return path
+
+
 def write_result(path: str | None, doc) -> None:
     """Write ``doc`` as JSON to ``path`` (``--out``); nothing without one.
     Never under ``benchmarks/``, whose files are the JAX package's results."""
     if not path:
         return
-    path = os.path.abspath(path)
-    if os.path.commonpath([path, BENCHMARKS]) == BENCHMARKS:
-        raise ValueError(f"--out {path}: the tools never write under {BENCHMARKS}")
+    path = outside_benchmarks(path, "--out")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(doc, f, indent=1)

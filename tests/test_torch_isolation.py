@@ -75,7 +75,11 @@ def test_port_imports_nothing_of_jax():
                 "tools/timing.py", "tools/roofline.py", "tools/train_bench.py",
                 "tools/train_breakdown.py", "tools/bwd_breakdown.py", "tools/synth_breakdown.py",
                 "tools/train_profile.py", "tools/train_sol.py", "tools/fwd_breakdown.py",
-                "tools/pipeline_throughput.py"):
+                "tools/pipeline_throughput.py",
+                # the studies (the rest of the benchmarks/ scripts' counterparts)
+                "tools/ablate.py", "tools/unet_bwd_probe.py", "tools/learn_ref_workload.py",
+                "tools/learn_model1_workload.py", "tools/cascade_folding_probe.py",
+                "tools/cascade_smoothing_sweep.py", "tools/opt_affine_rotation_study.py"):
         assert os.path.join(PKG, new) in files, new
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
