@@ -3,8 +3,10 @@
     python -m multimodal_registration_torch.tools.learn_check [steps] [--warm NPZ]
         [--shape X Y Z] [--labels L] [--device cpu]
 
-The port's counterpart of ``benchmarks/learn_check.py`` and
-``benchmarks/svf4_learn_probe.py``: trains the flagship model (``TrainConfig``'s
+The port's counterpart of ``benchmarks/learn_check.py``. It runs one arm, at
+``TrainConfig``'s ``svf_int_res``; ``tools/svf4_learn_probe.py`` (the
+counterpart of ``benchmarks/svf4_learn_probe.py``) trains two, at 2 and 4, on
+this module's map bank and pairs. It trains the flagship model (``TrainConfig``'s
 widths and defaults; batch 1, ``same_subj``, lr 1e-4, global-norm clip 1.0)
 with :meth:`Trainer.train_step_banked` on a bank of 16 label maps made by
 ``synth/labelmaps``, and holds its registrations of three held-out pairs
@@ -121,12 +123,15 @@ def identity(pairs: list, num_labels: int) -> dict:
                 for mov, _, fx, _ in pairs]))}
 
 
-def check_config(shape=(96, 96, 96), num_labels: int = 16, warm: bool = False) -> TrainConfig:
-    """The check's training configuration at ``shape`` and ``num_labels``."""
+def check_config(shape=(96, 96, 96), num_labels: int = 16, warm: bool = False,
+                 scales: dict | None = None) -> TrainConfig:
+    """The check's training configuration at ``shape`` and ``num_labels``;
+    from scratch the label maps' Perlin ``scales`` (``im_scales``,
+    ``def_scales``; default :data:`SCRATCH_SCALES`)."""
     return TrainConfig.from_dict(dict(
         in_shape=list(shape), num_labels=num_labels, num_maps=NUM_MAPS, batch_size=1,
         lr=1e-4, grad_clip_norm=1.0, epochs=1, same_subj=True,
-        **({} if warm else SCRATCH_SCALES)))
+        **({} if warm else scales or SCRATCH_SCALES)))
 
 
 def map_bank(cfg: TrainConfig, device, num_maps: int = NUM_MAPS) -> list:

@@ -1016,3 +1016,34 @@ def test_data_parallel_step_equals_the_one_device_step(cuda_device):
         total += p.numel()
         assert float((p - p1).abs().max()) <= 2 * cfg.lr + 1e-6, k
     assert far <= 1e-4 * total, (far, total)
+
+
+def test_two_stream_pairs_equal_single_pairs_at_64_cubed(cuda_device):
+    """``tools/pair_interleave_probe.py``'s two-stream arm (U(A) on stream 1,
+    an event, T(A); U(B) and T(B) on stream 2 behind that event) against each
+    pair's single forward on the caller's stream, bit for bit: the same
+    kernels and cuDNN calls on the same shapes, whatever the stream. Five
+    calls in a row, each one's outputs dropped before the next, so that a
+    block the caching allocator handed out again while a stream still read
+    it would show; and K1 x1, K2's fused step x5, K3 x1 a pair."""
+    from multimodal_registration_torch.tools import pair_interleave_probe as pip
+
+    model, vols, _ = pip.build((64, 64, 64), cuda_device)
+    with torch.no_grad():  # a field of voxels, not the initial head's 1e-5
+        model.flow.weight.mul_(3e4)
+    interleaved = pip.arms(model, vols, cuda_device)["two_interleaved_ms_per_pair"]
+    with torch.inference_mode():
+        singles = [pip.stage_t(model, m, pip.stage_u(model, m, f))
+                   for m, f in (vols[:2], vols[2:])]
+        assert float(singles[0][1].abs().max()) > 0.5
+        for _ in range(5):
+            before = (kernels.CONV3_LRELU_POOL.launches, kernels.WARP_TRILINEAR.launches,
+                      kernels.WARP_UP2X.launches)
+            got = interleaved()
+            torch.cuda.synchronize()
+            after = (kernels.CONV3_LRELU_POOL.launches, kernels.WARP_TRILINEAR.launches,
+                     kernels.WARP_UP2X.launches)
+            assert tuple(a - b for a, b in zip(after, before)) == (2, 10, 2)
+            for (gm, gw), (wm, ww) in zip(got, singles):
+                assert torch.equal(gm, wm) and torch.equal(gw, ww)
+            del got
