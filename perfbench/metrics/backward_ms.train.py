@@ -1,0 +1,9 @@
+"""Device ms a step of the operations launched under the span of
+``torch.autograd.backward`` (moves ``train_steps_per_s``)."""
+
+
+def read(trace):
+    ops = trace.under("backward")
+    if not ops or not trace.units:
+        return None
+    return 1e3 * trace.device_s(ops) / trace.units
