@@ -35,6 +35,7 @@ from multimodal_registration_torch.ops.resample import affine_resample
 from multimodal_registration_torch.ops.resize import rescale_field
 from multimodal_registration_torch.ops.warp import warp as device_warp
 from multimodal_registration_torch.utils import nifti
+from multimodal_registration_torch.utils.profiling import span
 
 
 def vxm_config_from(cfg: InferenceConfig, svf_smooth_sigma: float | None = None) -> VxmConfig:
@@ -105,36 +106,42 @@ class Registrar:
     def _ensure_scales(self, m, f):
         if not self.vxm_cfg.quantize or self.quant_scales is not None:
             return
-        self.quant_scales = qmod.calibrate_scales(self.vxm_cfg, self.model,
-                                                  [(m[..., None], f[..., None])], impl=self.impl)
-        self.model.set_quant_scales(self.quant_scales)
-        persist_quant_sidecar(self.quant_sidecar, self.quant_scales)
+        with span("registrar.calibrate"):
+            self.quant_scales = qmod.calibrate_scales(self.vxm_cfg, self.model,
+                                                      [(m[..., None], f[..., None])],
+                                                      impl=self.impl)
+            self.model.set_quant_scales(self.quant_scales)
+            persist_quant_sidecar(self.quant_sidecar, self.quant_scales)
 
     @torch.inference_mode()
     def predict_tensors(self, mov, fx):
         """Batched predict on ``(B, X, Y, Z)`` arrays or tensors -> ``(moved,
         warp)`` on the device: ``(B, X, Y, Z)`` and the int-res field ``(B,
         x, y, z, 3)``."""
-        mov, fx = on_device(mov, self.device), on_device(fx, self.device)
-        B = mov.shape[0]
-        chunk = min(self.max_batch, B)
-        moved_parts, warp_parts = [], []
-        for s in range(0, B, chunk):
-            m, f = mov[s: s + chunk], fx[s: s + chunk]
-            n = m.shape[0]
-            if n < chunk:
-                pad = torch.zeros((chunk - n, *m.shape[1:]), device=self.device)
-                m, f = torch.cat([m, pad]), torch.cat([f, pad])
-            self._ensure_scales(m, f)
-            out = self.model(m[..., None], f[..., None], impl=self.impl)
-            moved_parts.append(out["moved"][:n, ..., 0])
-            warp_parts.append(out["warp"][:n])
-        return torch.cat(moved_parts), torch.cat(warp_parts)
+        with span("registrar.predict_tensors"):
+            with span("registrar.to_device"):
+                mov, fx = on_device(mov, self.device), on_device(fx, self.device)
+            B = mov.shape[0]
+            chunk = min(self.max_batch, B)
+            moved_parts, warp_parts = [], []
+            for s in range(0, B, chunk):
+                m, f = mov[s: s + chunk], fx[s: s + chunk]
+                n = m.shape[0]
+                if n < chunk:
+                    pad = torch.zeros((chunk - n, *m.shape[1:]), device=self.device)
+                    m, f = torch.cat([m, pad]), torch.cat([f, pad])
+                self._ensure_scales(m, f)
+                out = self.model(m[..., None], f[..., None], impl=self.impl)
+                moved_parts.append(out["moved"][:n, ..., 0])
+                warp_parts.append(out["warp"][:n])
+            return torch.cat(moved_parts), torch.cat(warp_parts)
 
     def predict(self, mov, fx):
         """:meth:`predict_tensors` as numpy arrays on the host."""
-        moved, warp = self.predict_tensors(mov, fx)
-        return moved.cpu().numpy(), warp.cpu().numpy()
+        with span("registrar.predict"):
+            moved, warp = self.predict_tensors(mov, fx)
+            with span("registrar.to_host"):
+                return moved.cpu().numpy(), warp.cpu().numpy()
 
 
 @torch.inference_mode()

@@ -38,6 +38,7 @@ from multimodal_registration_torch.ops.field import smooth_field_batch
 from multimodal_registration_torch.ops.integrate import integrate_svf_batch
 from multimodal_registration_torch.ops.resize import rescale_field
 from multimodal_registration_torch.ops.warp import warp_batch, warp_up2x_batch
+from multimodal_registration_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -140,14 +141,16 @@ class VxmDense(nn.Module):
             raise ValueError(
                 f"spatial dims must be multiples of 16 (got {inshape}); the "
                 "preprocessing pads to floor16 shapes")
-        feat = self.unet(torch.cat([moving, fixed], dim=-1), impl=impl, pool_tie=pool_tie)
+        x = torch.cat([moving, fixed], dim=-1)
+        with span("vxm.unet"):
+            feat = self.unet(x, impl=impl, pool_tie=pool_tie)
         return self.tail(moving, self.flow_head(feat), impl=impl, with_moved=with_moved,
                          with_fullres=with_fullres)
 
     def flow_head(self, feat: torch.Tensor) -> torch.Tensor:
         """The float32 3³ SAME conv from the U-Net's features to the SVF
         ``(B, x, y, z, 3)``; cuDNN would otherwise run it in TF32."""
-        with full_fp32_convs():
+        with span("vxm.flow_head"), full_fp32_convs():
             return _ndhwc(F.conv3d(_ncdhw(feat.float()), self.flow.weight,
                                    self.flow.bias, padding=1)).contiguous()
 
@@ -156,37 +159,46 @@ class VxmDense(nn.Module):
         """From the head's SVF to the outputs of :meth:`forward`: rescale,
         smoothing, integration (K2), the full-res field and the moved image
         (K3). ``moving`` is the forward's input ``(B, X, Y, Z, 1)``."""
-        cfg = self.cfg
-        inshape = tuple(moving.shape[1:4])
-        svf_shape = tuple(int(round(d / cfg.svf_res)) for d in inshape)
-        if tuple(svf.shape[1:4]) != svf_shape:
-            f = svf_shape[0] / svf.shape[1]
-            svf = torch.stack([rescale_field(v, f, out_shape=svf_shape) for v in svf])
+        with span("vxm.tail"):
+            cfg = self.cfg
+            inshape = tuple(moving.shape[1:4])
+            svf_shape = tuple(int(round(d / cfg.svf_res)) for d in inshape)
+            if tuple(svf.shape[1:4]) != svf_shape:
+                f = svf_shape[0] / svf.shape[1]
+                with span("vxm.rescale"):
+                    svf = torch.stack([rescale_field(v, f, out_shape=svf_shape) for v in svf])
 
-        if cfg.svf_smooth_sigma > 0:
-            svf = smooth_field_batch(svf, cfg.svf_smooth_sigma)
+            if cfg.svf_smooth_sigma > 0:
+                with span("vxm.rescale"):
+                    svf = smooth_field_batch(svf, cfg.svf_smooth_sigma)
 
-        int_shape = tuple(int(round(d / cfg.int_res)) for d in inshape)
-        flow = svf
-        if tuple(flow.shape[1:4]) != int_shape:
-            f = int_shape[0] / flow.shape[1]
-            flow = torch.stack([rescale_field(v, f, out_shape=int_shape) for v in flow])
+            int_shape = tuple(int(round(d / cfg.int_res)) for d in inshape)
+            flow = svf
+            if tuple(flow.shape[1:4]) != int_shape:
+                f = int_shape[0] / flow.shape[1]
+                with span("vxm.rescale"):
+                    flow = torch.stack([rescale_field(v, f, out_shape=int_shape) for v in flow])
 
-        pos_flow = integrate_svf_batch(flow, cfg.int_steps, self.payload_dtype, impl=impl)
+            with span("vxm.integrate"):
+                pos_flow = integrate_svf_batch(flow, cfg.int_steps, self.payload_dtype, impl=impl)
 
-        if not (with_fullres or with_moved):
-            flow_fullres = None
-        elif tuple(pos_flow.shape[1:4]) != inshape:
-            factors = tuple(i / c for i, c in zip(inshape, pos_flow.shape[1:4]))
-            flow_fullres = torch.stack(
-                [rescale_field(v, factors, out_shape=inshape) for v in pos_flow])
-        else:
-            flow_fullres = pos_flow
+            if not (with_fullres or with_moved):
+                flow_fullres = None
+            elif tuple(pos_flow.shape[1:4]) != inshape:
+                factors = tuple(i / c for i, c in zip(inshape, pos_flow.shape[1:4]))
+                with span("vxm.fullres"):
+                    flow_fullres = torch.stack(
+                        [rescale_field(v, factors, out_shape=inshape) for v in pos_flow])
+            else:
+                flow_fullres = pos_flow
 
-        if not with_moved:
-            moved = None
-        elif tuple(2 * d for d in pos_flow.shape[1:4]) == inshape:
-            moved = warp_up2x_batch(moving.float(), pos_flow, impl=impl)
-        else:
-            moved = warp_batch(moving.float(), flow_fullres, interp="linear", impl=impl)
-        return {"moved": moved, "warp": pos_flow, "flow_fullres": flow_fullres, "svf": svf}
+            if not with_moved:
+                moved = None
+            else:
+                with span("vxm.warp"):
+                    if tuple(2 * d for d in pos_flow.shape[1:4]) == inshape:
+                        moved = warp_up2x_batch(moving.float(), pos_flow, impl=impl)
+                    else:
+                        moved = warp_batch(moving.float(), flow_fullres, interp="linear",
+                                           impl=impl)
+            return {"moved": moved, "warp": pos_flow, "flow_fullres": flow_fullres, "svf": svf}

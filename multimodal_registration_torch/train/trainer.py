@@ -66,6 +66,7 @@ from multimodal_registration_torch.synth.image_engine import (
     reduced_svf_grid,
 )
 from multimodal_registration_torch.train.config import TrainConfig
+from multimodal_registration_torch.utils.profiling import span
 
 
 def engine_config_from(cfg: TrainConfig) -> ImageEngineConfig:
@@ -347,11 +348,18 @@ class Trainer:
         B = src.shape[0]
         rows = self.replicas if B % len(self.replicas) == 0 else [self.device]
         b = B // len(rows)
-        draws = draw_batch(gen, src, trg, self.engine_cfg, self.cfg, zero_borders)
+        with span("train.draw"):
+            draws = draw_batch(gen, src, trg, self.engine_cfg, self.cfg, zero_borders)
         parts = [draws_of(draws, slice(r * b, (r + 1) * b), dev) for r, dev in enumerate(rows)]
         del draws  # each share's draws are freed once its batch is built
         for dev in rows:
-            yield self.models[dev], build_batch(parts.pop(0), self.engine_cfg), b / B
+            with span("train.build"):
+                batch = build_batch(parts[0], self.engine_cfg)
+            # the share's draws are freed here, past the span; the caller alone
+            # holds the batch, so that it can free it before the backward
+            parts[0] = batch
+            del batch
+            yield self.models[dev], parts.pop(0), b / B
 
     def losses(self, shares, backward: bool) -> dict:
         """Score each ``(model, batch, share)`` of ``shares``; with
@@ -362,14 +370,16 @@ class Trainer:
         use_zeropad = self.cfg.zero_borders_maps or self.cfg.zero_borders_maps_val
         aux = None
         for model, batch, share in shares:
-            loss, aux_r = loss_from_batch(model, batch, self.engine_cfg, self.cfg, use_zeropad,
-                                          pool_tie=self.pool_tie)
+            with span("train.loss"):
+                loss, aux_r = loss_from_batch(model, batch, self.engine_cfg, self.cfg,
+                                              use_zeropad, pool_tie=self.pool_tie)
             del batch  # what the backward needs, its graph holds
             if backward:
+                scaled = loss * share
                 # the float32 flow head's cuDNN backward runs here, outside
                 # the forward's context: keep TF32 off for it too
-                with full_fp32_convs():
-                    (loss * share).backward()
+                with full_fp32_convs(), span("train.backward"):
+                    scaled.backward()
                 self._reduce_grads(model)
             aux_r = {k: (v * share).to(self.device) for k, v in aux_r.items()}
             aux = aux_r if aux is None else {k: aux[k] + aux_r[k] for k in aux}
@@ -378,21 +388,26 @@ class Trainer:
     def train_step(self, gen: torch.Generator, src: torch.Tensor, trg: torch.Tensor) -> dict:
         """One optimizer step on the label maps ``src``, ``trg`` ``(B, X, Y,
         Z)`` on the first device; returns the aux scalars (tensors there)."""
-        for m in self.models.values():
-            m.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        aux = self.losses(self.shares(gen, src, trg, self.cfg.zero_borders_maps), backward=True)
-        if self.cfg.grad_clip_norm and self.cfg.grad_clip_norm > 0:
-            clip_by_global_norm_(list(self.model.parameters()), self.cfg.grad_clip_norm)
-        self.optimizer.step()
-        return aux
+        with span("train.step"):
+            for m in self.models.values():
+                m.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            aux = self.losses(self.shares(gen, src, trg, self.cfg.zero_borders_maps),
+                              backward=True)
+            if self.cfg.grad_clip_norm and self.cfg.grad_clip_norm > 0:
+                with span("train.clip"):
+                    clip_by_global_norm_(list(self.model.parameters()), self.cfg.grad_clip_norm)
+            with span("train.adam"):
+                self.optimizer.step()
+            return aux
 
     @torch.no_grad()
     def val_step(self, gen: torch.Generator, src: torch.Tensor, trg: torch.Tensor) -> dict:
-        for m in self.models.values():
-            m.eval()
-        return self.losses(self.shares(gen, src, trg, self.cfg.zero_borders_maps_val),
-                           backward=False)
+        with span("train.val"):
+            for m in self.models.values():
+                m.eval()
+            return self.losses(self.shares(gen, src, trg, self.cfg.zero_borders_maps_val),
+                               backward=False)
 
     def train_step_banked(self, gen, bank, src_idx, trg_idx) -> dict:
         """:meth:`train_step` on ``bank[src_idx]``, ``bank[trg_idx]``, gathered

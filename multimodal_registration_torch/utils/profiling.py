@@ -6,17 +6,110 @@ when a card is present) and writes it as a Chrome trace; :class:`StepTimer`
 keeps one JSON-lines record per step, with the same records, file lines and
 ``summary()`` as the JAX package's, and can wait for the card before it
 reads the clock.
+
+:func:`span` marks the boundaries of the port's layers (the registrar, the
+model's forward, the training step). A span records only while a torch
+profiler records, and costs one check of the profiler's state otherwise.
+Under the profiler it is one record in an in-memory ring that :func:`spans`
+returns, on the profiler's own host clock, and a range of the profiler's
+function scope: a trace of every scope (``torch.profiler.profile``,
+:func:`device_trace`) shows it among the operators. It is no
+``record_function`` range (the user scope) on purpose: the profiler projects
+those onto the device's timeline as operations of their own, which a reader
+of the user scope's device operations would count as work.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+
+class _Ring:
+    """The newest records, and a count of those pushed out."""
+
+    def __init__(self, size: int):
+        self.records = deque(maxlen=size)
+        self.dropped = 0
+        self.lock = threading.Lock()
+
+    def add(self, rec: tuple) -> None:
+        with self.lock:
+            if len(self.records) == self.records.maxlen:
+                self.dropped += 1
+            self.records.append(rec)
+
+
+_RING = _Ring(1 << 17)
+_IDS = itertools.count(1)
+_LOCAL = threading.local()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "sid", "parent", "root", "start", "rf", "stack")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_LOCAL, "stack", None)
+        if stack is None:
+            stack = _LOCAL.stack = []
+        self.sid = next(_IDS)
+        outer = stack[-1] if stack else None
+        self.parent = outer.sid if outer else 0
+        self.root = outer.root if outer else self.sid
+        # the profiler's host events are stamped on the Unix-epoch clock
+        self.start = time.time_ns()
+        self.rf = _RecordFunctionFast(self.name)
+        self.rf.__enter__()
+        self.stack = stack
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.stack.pop()
+        try:
+            self.rf.__exit__(*exc)
+        finally:
+            _RING.add((self.name, self.start, time.time_ns(), self.sid, self.parent,
+                       self.root, threading.get_ident()))
+        return False
+
+
+def span(name: str):
+    """A context over one layer's work named ``name``: while a torch profiler
+    records, a range of the profiler's function scope and one record of
+    :func:`spans`; otherwise one shared no-op context. Spans nest by thread; the spans of
+    one call or step share the ``root_id`` of the outermost."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+def spans() -> list:
+    """The recorded spans in the order they ended, ``(name, start_ns,
+    end_ns, span_id, parent_id, root_id, thread_id)``, the times from
+    ``time.time_ns()``, the clock of the profiler's host events. The ring
+    keeps the newest 2**17."""
+    with _RING.lock:
+        return list(_RING.records)
+
+
+def dropped() -> int:
+    """How many records the ring has pushed out since the process began."""
+    return _RING.dropped
 
 
 @contextlib.contextmanager
