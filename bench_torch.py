@@ -78,7 +78,8 @@ W256_CKPT = os.path.join(
 )
 
 # kernel launches of one forward at int_steps 5 and int_res 2 (K8: one per int8 conv)
-FORWARD_LAUNCHES = {"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1}
+FORWARD_LAUNCHES = {"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1,
+                    "flow_head": 1}
 
 
 def _load_w256(cfg: VxmConfig):

@@ -208,7 +208,17 @@ Phases (any failure exits non-zero):
           (1, 80, 80, 96, 3), finite, through K1 x1, K2 x5, K3 x1; with the
           in-repo ``learned_ref`` weights in ``params``, ``fn`` on phase 3's
           pair equals phase 3's forward bit for bit;
- 16. the report, and the card's name and power limit.
+ 16. K9, the flow head's float32 conv C -> 3 (forward, input gradient, weight
+     and bias gradients), at the flagship and published widths (80x80x96, C 64
+     and 256), the tiles of use_subvol (4 x 40x40x48) and one {space: 2} slab
+     with its halo: each entry against its plain version in float64 (each
+     element within 4 sqrt(N) 2**-24 of the root of its N squared terms, the
+     bf16 input gradient also 1 bf16 ulp; bf16-rounded terms seen beyond
+     it), twice the same bits;
+     each entry's ms, device ms and bound beside its plain version and the
+     library conv it replaced; K9 x1 a flagship forward, each entry once a
+     loss-and-backward;
+ 17. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -539,7 +549,8 @@ DICE_ENTRIES = {"warp_labels_dice_fwd": "warp_labels_dice_fwd_launch",
                 "warp_labels_dice_bwd": "warp_labels_dice_bwd_launch"}
 TRAIN_WANT = {"conv3_lrelu_pool": 0, "warp_trilinear": 11, "warp_up2x": 0,
               "max_pool_2x_bwd": 4, "warp_trilinear_bwd": 6,
-              "warp_labels_soft_hard": 3, "warp_labels_bwd": 1, "conv3_int8": 0}
+              "warp_labels_soft_hard": 3, "warp_labels_bwd": 1, "conv3_int8": 0,
+              "flow_head": 4}
 
 
 def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
@@ -1386,7 +1397,7 @@ def published_widths_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     params = load_params_any(W256_CKPT, cfg)
     mov_t = torch.as_tensor(mov_np, device=dev)[None, ..., None]
     fx_t = torch.as_tensor(fx_np, device=dev)[None, ..., None]
-    serving = {"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1}
+    serving = {"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1, "flow_head": 1}
 
     print("# phase 7b: the w256 forward in bf16 (K1, K2 x5, K3, cuDNN for the other convs)",
           flush=True)
@@ -2458,8 +2469,10 @@ def multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     print(f"#   10a: launches per sharded forward {counts['10a']}")
     if not rehearsal:
         expect = dict.fromkeys(counts["10a"], 0)
-        expect.update({"conv3_lrelu_pool": 2, "warp_trilinear": 5, "warp_up2x": 1})
-        check(counts["10a"] == expect, f"10a: launched {counts['10a']}, want K1 x2, K2 x5, K3 x1")
+        expect.update({"conv3_lrelu_pool": 2, "warp_trilinear": 5, "warp_up2x": 1,
+                       "flow_head": 2})
+        check(counts["10a"] == expect,
+              f"10a: launched {counts['10a']}, want K1 x2, K2 x5, K3 x1, K9 x2 (a slab each)")
     field_max = float(want["warp"].abs().max())
     numbers["10a"] = f2_rule("10a", got, want, field_max)
     numbers["10a"]["max_abs_warp"] = field_max
@@ -2991,7 +3004,7 @@ def bench_phase(dev, rehearsal):
         check(len(best) == len(BENCH_SPECS), "11a: the bench's stderr lacks its best times")
         for (arch, quantize, metric), got in zip(BENCH_SPECS, per_forward):
             want = dict.fromkeys(got, 0)
-            want.update(conv3_lrelu_pool=1, warp_trilinear=5, warp_up2x=1,
+            want.update(conv3_lrelu_pool=1, warp_trilinear=5, warp_up2x=1, flow_head=1,
                         conv3_int8=9 if quantize else 0)
             check(got == want, f"11a {metric}: a forward launched {got}, want {want}")
     numbers["11a"] = {
@@ -3706,9 +3719,10 @@ def studies_phase(dev, rehearsal, tmp):
 PHASE15_BUDGET_S = 150  # of the script's 1200 s
 PROBE_STEPS = 1000  # 15a: each arm, as 9a's one arm (the JAX probe's 3000 cut for time)
 PROBE_TINY = dict(in_shape=[16, 16, 16], num_labels=4)  # the CPU rehearsal
-# a flagship forward's launches (by kernel and by C entry): K1, K2's fused step x5, K3
+# a flagship forward's launches (by kernel and by C entry): K1, K2's fused step x5, K3, K9
 FWD_WANT = {"conv3_lrelu_pool": 1, "conv3_lrelu_pool_launch": 1, "warp_trilinear": 5,
-            "self_warp_add_launch": 5, "warp_up2x": 1, "warp_up2x_launch": 1}
+            "self_warp_add_launch": 5, "warp_up2x": 1, "warp_up2x_launch": 1,
+            "flow_head": 1, "flow_head_fwd_launch": 1}
 # 15c: the batch of 2's warp against the single pair's on the probe's initial
 # weights (fields of 1e-4 voxel), in bf16 ulps of the field: twice the largest
 # reading, 1.973 ulp (PERF.md section 6); f2_rule says why its 1 ulp
@@ -3932,6 +3946,210 @@ def probes_phase(dev, rehearsal, fwd3):
     return counts, numbers
 
 
+PHASE16_BUDGET_S = 150  # of the script's 1200 s
+# (label, (B, X, Y, Z), C): the flagship head and the published widths' at
+# the half grid of 160x160x192, the tiles of use_subvol (80x80x96, batches of
+# 4), and one X slab of {space: 2} with its two halo planes
+FLOW_HEAD_SHAPES = (("flagship", (1, 80, 80, 96), 64), ("w256", (1, 80, 80, 96), 256),
+                    ("tiles", (4, 40, 40, 48), 64), ("space2_slab", (1, 42, 80, 96), 64))
+FLOW_HEAD_ENTRIES = ("flow_head_fwd_launch", "flow_head_dgrad_launch",
+                     "flow_head_wgrad_launch", "flow_head_wgrad_finish_launch")
+
+
+def flow_head_phase(dev, timer, rehearsal, results, timing):
+    """Phase 16: K9, the flow head's float32 conv C -> 3 (``ops/flow_head.py``),
+    its three entries against their plain versions (the same formulas tap by
+    tap) in float64 at :data:`FLOW_HEAD_SHAPES`: each element within 4 *
+    sqrt(N) * 2**-24 of the root of the sum of its N squared terms
+    (``references_and_limits``), the bf16 input gradient also 1 bf16 ulp;
+    a weight and bias gradient of the cotangent rounded to bf16, and a forward
+    of the weights rounded to bf16, beyond it (a record that the limit sees
+    such a loss of precision); each entry's ms, device
+    ms and operations beside its bound (float32 FMAs at FP32_FLOPS; bytes at
+    3.35 TB/s), its plain version and the library's float32 conv that the
+    head ran before (``library_ms``: the conv on ``feat.float()``, its input
+    gradient through the cast, its weight and bias gradients); then the
+    launches of one flagship forward (K9 x1) and of one loss-and-backward of
+    the flagship model (one of each entry). Returns its launch counts and
+    numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.device import full_fp32_convs
+    from multimodal_registration_torch.models.unet import _ncdhw, _ndhwc
+    from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
+    from multimodal_registration_torch.ops import flow_head as fh
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    numbers, counts = {"shapes": {}}, {}
+    print("# phase 16: K9, the flow head (float32 conv C -> 3, forward and both gradients)",
+          flush=True)
+
+    def library(feat, w, b):  # the head as it ran before K9
+        with full_fp32_convs():
+            return _ndhwc(F.conv3d(_ncdhw(feat.float()), w, b, padding=1)).contiguous()
+
+    def inference(fn):
+        def call():
+            with torch.inference_mode():
+                return fn()
+        return call
+
+    fwd_entry = fh._forward if cuda else fh.flow_head_plain
+    dgrad_entry = fh._dgrad if cuda else fh.flow_head_dgrad_plain
+    wgrad_entry = fh._wgrad if cuda else fh.flow_head_wgrad_plain
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for label, shape, C in FLOW_HEAD_SHAPES:
+        if rehearsal:
+            shape = (shape[0], 6, 4, 8 if label != "tiles" else 6)
+        feat = torch.randn((*shape, C), generator=gen, device=dev).bfloat16()
+        w = torch.randn((3, C, 3, 3, 3), generator=gen, device=dev) * 0.05
+        b = torch.randn((3,), generator=gen, device=dev)
+        cot = torch.randn((*shape, 3), generator=gen, device=dev)
+
+        def grads(head):
+            leaves = [x.detach().clone().requires_grad_() for x in (feat, w, b)]
+            out = head(*leaves)
+            out.backward(cot)
+            return [out.detach()] + [x.grad for x in leaves]
+
+        def k9_grads():  # the Function on the card; the plain versions in a rehearsal
+            if cuda:
+                return grads(fh.flow_head_conv)
+            return [fwd_entry(feat, w, b), dgrad_entry(cot, w, feat.dtype),
+                    *wgrad_entry(feat, cot)]
+
+        def share_of_limit(got, want, limit):
+            return float(((got.double() - want).abs() / limit.clamp_min(1e-300)).max())
+
+        kernels.reset_launch_counts()
+        got = k9_grads()
+        if cuda:
+            torch.cuda.synchronize()
+        entries = kernels.entry_launch_counts()
+        check(rehearsal or entries == dict.fromkeys(FLOW_HEAD_ENTRIES, 1),
+              f"16 {label}: a forward and backward launched {entries}, want each entry once")
+        want, limits = fh.references_and_limits(feat, w, b, cot)
+        row = {"shape": [*shape, C], "err": {}, "share_of_limit": {}}
+        for name, k, p, lim in zip(("fwd", "dgrad", "wgrad", "bias"), got, want, limits):
+            err, share = float((k.double() - p).abs().max()), share_of_limit(k, p, lim)
+            row["err"][name], row["share_of_limit"][name] = err, share
+            print(f"#   16 {label} {name}: max_abs_err {err:.3e} against float64; the largest "
+                  f"error {share:.3e} of its element's float32 limit"
+                  f"{' (+ 1 bf16 ulp)' if name == 'dgrad' else ''}", flush=True)
+            check(share <= 1.0, f"16 {label}: K9's {name} disagrees with its plain version")
+        # what the limit makes of terms rounded to bf16: a record, and a check
+        # that it sees them
+        dw, db = wgrad_entry(feat, cot.bfloat16().float())
+        row["bf16_terms"] = {
+            "wgrad": share_of_limit(dw, want[2], limits[2]),
+            "bias": share_of_limit(db, want[3], limits[3]),
+            "fwd": share_of_limit(fwd_entry(feat, w.bfloat16().float(), b), want[0], limits[0])}
+        del dw, db
+        print(f"#   16 {label}: bf16-rounded cotangent (wgrad, bias) and weights (fwd), the "
+              f"largest error as a share of the limit: {row['bf16_terms']}", flush=True)
+        check(min(row["bf16_terms"].values()) > 1.0,
+              f"16 {label}: terms rounded to bf16 pass the float32 limit")
+        lib = grads(library)
+        row["vs_library"] = {n: float((k.float() - q.float()).abs().max())
+                             for n, k, q in zip(("fwd", "dgrad", "wgrad", "bias"), got, lib)}
+        print(f"#   16 {label}: against the library conv (a record): {row['vs_library']}",
+              flush=True)
+        del got, want, limits, lib
+        again = [k9_grads() for _ in range(2)]
+        check(all(torch.equal(x, y) for x, y in zip(*again)),
+              f"16 {label}: two backward runs gave different bits")
+        del again
+
+        V, fb = math.prod(shape), feat.element_size()
+        ops = 2 * V * 27 * C * 3
+        bounds = {"fwd": bound(V * C * fb + V * 3 * 4, ops, FP32_FLOPS),
+                  "dgrad": bound(V * 3 * 4 + V * C * fb, ops, FP32_FLOPS),
+                  "wgrad": bound(V * C * fb + V * 3 * 4, ops, FP32_FLOPS)}
+        n = 3 if rehearsal else 10
+        plain_kw = {"n": 1, "reps": 2, "warmup": 1}
+        row["fwd"] = measure(
+            timer, f"flow_head forward {label}", bounds["fwd"],
+            inference(lambda: fwd_entry(feat, w, b)),
+            inference(lambda: fh.flow_head_plain(feat, w, b)),
+            inference(lambda: library(feat, w, b)), n=n, plain_kw=plain_kw)
+        row["dgrad"] = measure(
+            timer, f"flow_head input gradient {label}", bounds["dgrad"],
+            inference(lambda: dgrad_entry(cot, w, feat.dtype)),
+            inference(lambda: fh.flow_head_dgrad_plain(cot, w, feat.dtype)),
+            backward_call(lambda fe: library(fe, w, b), [feat], cot), n=n, plain_kw=plain_kw)
+        row["wgrad"] = measure(
+            timer, f"flow_head weight gradient {label}", bounds["wgrad"],
+            inference(lambda: wgrad_entry(feat, cot)),
+            inference(lambda: fh.flow_head_wgrad_plain(feat, cot)),
+            backward_call(lambda we, be: library(feat, we, be), [w, b], cot), n=n,
+            plain_kw=plain_kw)
+        for name in ("fwd", "dgrad", "wgrad"):
+            r = row[name]
+            r.pop("device_rows", None)
+            dev_ms, lib_ms = r["device_ms"], r["library_ms"]
+            dev_s = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+            share = "not measured" if dev_ms is None else f"{100 * r['bound'][0] / dev_ms:.1f}%"
+            lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            print(f"#   16 {label} {name}: {r['ms']:.4f} ms, device {dev_s} in "
+                  f"{r['device_ops']} operations, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; "
+                  f"device time at {share} of it), plain {r['plain_ms']:.3f} ms, library {lib_s}",
+                  flush=True)
+        numbers["shapes"][label] = row
+        del feat, w, b, cot
+
+    # the launches of one flagship forward and of one loss-and-backward
+    shape = (32, 32, 48) if rehearsal else (160, 160, 192)
+    model = VxmDense(VxmConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                  for k, v in FLAGSHIP.items()}), device=dev)
+    mov = torch.rand((1, *shape, 1), generator=gen, device=dev)
+    fx = torch.rand((1, *shape, 1), generator=gen, device=dev)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        model(mov, fx)
+    if cuda:
+        torch.cuda.synchronize()
+    counts["16_forward"] = kernels.launch_counts()
+    fwd_entries = kernels.entry_launch_counts()
+    kernels.reset_launch_counts()
+    out = model(mov, fx, with_moved=False)
+    out["warp"].square().mean().backward()
+    if cuda:
+        torch.cuda.synchronize()
+    counts["16_train"] = kernels.launch_counts()
+    train_entries = kernels.entry_launch_counts()
+    print(f"#   16: K9 launches of one flagship forward {counts['16_forward']['flow_head']} "
+          f"({ {k: v for k, v in fwd_entries.items() if k.startswith('flow_head')} }); of one "
+          f"loss-and-backward {counts['16_train']['flow_head']} "
+          f"({ {k: v for k, v in train_entries.items() if k.startswith('flow_head')} })",
+          flush=True)
+    if not rehearsal:
+        check(counts["16_forward"]["flow_head"] == 1
+              and fwd_entries.get("flow_head_fwd_launch") == 1,
+              f"16: a flagship forward launched K9 {fwd_entries}, want the forward once")
+        check(all(train_entries.get(e) == 1 for e in FLOW_HEAD_ENTRIES)
+              and counts["16_train"]["flow_head"] == 4,
+              f"16: a loss-and-backward launched K9 {train_entries}, want each entry once")
+    del model, out, mov, fx
+    flag = numbers["shapes"]["flagship"]
+    timing["flow_head"] = dict(flag["fwd"], shapes={
+        label: {name: {k: r[name][k] for k in ("ms", "device_ms", "device_ops", "plain_ms",
+                                               "library_ms", "library_device_ms")}
+                | {"bound_ms": r[name]["bound"][0], "bound_by": r[name]["bound"][1],
+                   "max_abs_err": r["err"][name]}
+                for name in ("fwd", "dgrad", "wgrad")} | {"shape": r["shape"]}
+        for label, r in numbers["shapes"].items()})
+    results["flow_head"]["max_abs_err"] = flag["err"]["fwd"]
+    numbers["total_s"] = time.perf_counter() - t_phase
+    print(f"#   phase 16: {numbers['total_s']:.1f} s of its budget of {PHASE16_BUDGET_S} s",
+          flush=True)
+    check(rehearsal or numbers["total_s"] <= PHASE16_BUDGET_S,
+          f"phase 16 took {numbers['total_s']:.1f} s, over its budget of {PHASE16_BUDGET_S} s")
+    return counts, numbers
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -4085,8 +4303,9 @@ def main() -> None:
     print(f"#   launches per forward: {per_fwd}")
     if not rehearsal:
         want = dict.fromkeys(per_fwd, 0)
-        want.update({"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1})
-        check(per_fwd == want, f"forward launched {per_fwd}, want K1 x1, K2 x5, K3 x1 only")
+        want.update({"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1, "flow_head": 1})
+        check(per_fwd == want,
+              f"forward launched {per_fwd}, want K1 x1, K2 x5, K3 x1, K9 x1 only")
     for k in ("moved", "warp"):
         check(bool(torch.isfinite(out_k[k]).all()), f"forward {k} not finite")
     check(tuple(out_k["moved"].shape) == (1, *shape, 1), "moved has the wrong shape")
@@ -4305,7 +4524,12 @@ def main() -> None:
     probe_launches, probe_numbers = probes_phase(dev, rehearsal, (mov_t, fx_t, out_k))
     print(f"#   phase 15 numbers: {json.dumps(probe_numbers)}")
 
-    # ---- 16. report ----------------------------------------------------------
+    # ---- 16. the flow head's conv (K9) at its callers' shapes --------------------
+    clear_scratch()
+    head_launches, head_numbers = flow_head_phase(dev, timer, rehearsal, results, timing)
+    print(f"#   phase 16 numbers: {json.dumps(head_numbers)}")
+
+    # ---- 17. report ----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
     # before it: register() for K1-K3, run_training() for K4-K7, register()
     # with the published config in int8 (7d) for K8
@@ -4331,6 +4555,7 @@ def main() -> None:
             **{f"launches_{phase}": n[k.name] for phase, n in tools_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in study_launches.items()},
             **{f"launches_{phase}": n[k.name] for phase, n in probe_launches.items()},
+            **{f"launches_{phase}": n[k.name] for phase, n in head_launches.items()},
             "max_abs_err": results[k.name]["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
@@ -4339,7 +4564,7 @@ def main() -> None:
         if "bound_needed" in row:  # K7: bound_ms counts sectors moved, this one entries needed
             report[-1].update({"bound_needed_ms": row["bound_needed"][0],
                                "bound_needed_by": row["bound_needed"][1]})
-        if "shapes" in row:  # K8: every int8 conv shape of the w256 forward
+        if "shapes" in row:  # K8: every int8 conv shape of the w256 forward; K9: phase 16's
             report[-1]["shapes"] = row["shapes"]
         if "w256" in row:  # K4: the pools of the w256 training step, 256 channels (13a)
             report[-1]["w256"] = row["w256"]
@@ -4420,7 +4645,11 @@ def main() -> None:
                            for r in probe_numbers['15b']['rows'])
           + f" interleave_speedup {probe_numbers['15c']['results']['speedup_interleave_vs_2x_single']} "
           f"entry_fn_ms {probe_numbers['15d']['ms']:.4f} "
-          f"phase15_s {probe_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
+          f"phase15_s {probe_numbers['total_s']:.1f} "
+          + " ".join(f"flow_head_{label}_{name}_device_ms {r[name]['device_ms']}"
+                     for label, r in head_numbers["shapes"].items()
+                     for name in ("fwd", "dgrad", "wgrad"))
+          + f" phase16_s {head_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

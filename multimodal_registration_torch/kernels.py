@@ -227,8 +227,23 @@ CONV3_INT8 = Kernel(
         "conv3_int8_attributes": [_P],
     },
 )
+FLOW_HEAD = Kernel(
+    "flow_head", "flow_head.cu", "flow_head_fwd_launch",
+    # feat, w, bias, out, B, X, Y, Z, C, is_bf16, stream
+    [_P, _P, _P, _P, *[_I] * 6, _P],
+    "none: multimodal_registration_tpu/models/vxm_dense.py:116 is an XLA conv",
+    entries={
+        # the input gradient: g, w, dfeat, B, X, Y, Z, C, is_bf16, stream
+        "flow_head_dgrad_launch": [_P, _P, _P, *[_I] * 6, _P],
+        # the weight gradient's partial sums: feat, g, part, part_bias, B, X, Y,
+        # Z, C, span, nblk, is_bf16, stream (ops/flow_head.py::wgrad_blocks)
+        "flow_head_wgrad_launch": [_P, _P, _P, _P, *[_I] * 8, _P],
+        # their sum in block order: part, part_bias, dw, db, C, nblk, is_bf16, stream
+        "flow_head_wgrad_finish_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    },
+)
 KERNELS = (CONV3_LRELU_POOL, WARP_TRILINEAR, WARP_UP2X, MAX_POOL_2X_BWD,
-           WARP_TRILINEAR_BWD, WARP_LABELS, WARP_LABELS_BWD, CONV3_INT8)
+           WARP_TRILINEAR_BWD, WARP_LABELS, WARP_LABELS_BWD, CONV3_INT8, FLOW_HEAD)
 
 
 def launch_counts() -> dict:

@@ -2,9 +2,9 @@
 
 Counterpart of ``multimodal_registration_tpu/models/vxm_dense.py``: a U-Net
 over ``concat(moving, fixed)`` gives features at ``1/svf_res`` resolution, a
-3-channel 3³ float32 conv head emits the SVF, which is rescaled to
-``1/int_res``, integrated by scaling and squaring, and used to warp the
-moving image. When the integrated field is the half grid, the moved image
+3-channel 3³ float32 conv head (kernel K9 on the card) emits the SVF, which
+is rescaled to ``1/int_res``, integrated by scaling and squaring, and used to
+warp the moving image. When the integrated field is the half grid, the moved image
 comes from kernel K3 (2x upsample fused into the warp).
 
 Outputs: ``moved``, ``warp`` (the field at int-res, the reference
@@ -35,9 +35,10 @@ from torch import nn
 from multimodal_registration_torch.device import full_fp32_convs
 from multimodal_registration_torch.models.unet import Unet, _ncdhw, _ndhwc
 from multimodal_registration_torch.ops.field import smooth_field_batch
+from multimodal_registration_torch.ops.flow_head import flow_head_conv
 from multimodal_registration_torch.ops.integrate import integrate_svf_batch
 from multimodal_registration_torch.ops.resize import rescale_field
-from multimodal_registration_torch.ops.warp import warp_batch, warp_up2x_batch
+from multimodal_registration_torch.ops.warp import use_kernel, warp_batch, warp_up2x_batch
 from multimodal_registration_torch.utils.profiling import span
 
 
@@ -144,15 +145,21 @@ class VxmDense(nn.Module):
         x = torch.cat([moving, fixed], dim=-1)
         with span("vxm.unet"):
             feat = self.unet(x, impl=impl, pool_tie=pool_tie)
-        return self.tail(moving, self.flow_head(feat), impl=impl, with_moved=with_moved,
-                         with_fullres=with_fullres)
+        return self.tail(moving, self.flow_head(feat, impl=impl), impl=impl,
+                         with_moved=with_moved, with_fullres=with_fullres)
 
-    def flow_head(self, feat: torch.Tensor) -> torch.Tensor:
+    def flow_head(self, feat: torch.Tensor, impl=None) -> torch.Tensor:
         """The float32 3³ SAME conv from the U-Net's features to the SVF
-        ``(B, x, y, z, 3)``; cuDNN would otherwise run it in TF32."""
-        with span("vxm.flow_head"), full_fp32_convs():
-            return _ndhwc(F.conv3d(_ncdhw(feat.float()), self.flow.weight,
-                                   self.flow.bias, padding=1)).contiguous()
+        ``(B, x, y, z, 3)``: on the card kernel K9 (``ops/flow_head.py``, forward
+        and both gradients), reading the features as they are; on the CPU, or
+        with ``impl="plain"``, the library conv on ``feat.float()`` in full
+        float32 (cuDNN would otherwise run it in TF32)."""
+        with span("vxm.flow_head"):
+            if use_kernel(feat, impl):
+                return flow_head_conv(feat, self.flow.weight, self.flow.bias)
+            with full_fp32_convs():
+                return _ndhwc(F.conv3d(_ncdhw(feat.float()), self.flow.weight,
+                                       self.flow.bias, padding=1)).contiguous()
 
     def tail(self, moving: torch.Tensor, svf: torch.Tensor, impl=None,
              with_moved: bool = True, with_fullres: bool = True) -> dict:

@@ -87,8 +87,8 @@ def forward_slabs(models: dict, devices, moving, fixed, impl=None) -> dict:
     ``devices``; the outputs on the first device."""
     home = devices[0]
     feat = unet_slabs(models, devices, moving, fixed, impl)
-    svf = gather([models[d].flow_head(p)[:, 1:-1] for d, p in zip(devices, with_halo(feat, 1))],
-                 home, dim=1)
+    svf = gather([models[d].flow_head(p, impl=impl)[:, 1:-1]
+                  for d, p in zip(devices, with_halo(feat, 1))], home, dim=1)
     return models[home].tail(moving, svf, impl=impl)
 
 

@@ -47,10 +47,11 @@ def step_launches(batch: int) -> dict:
     2 a sample (the two syntheses' label warps) + 1 (the loss's Dice sums,
     K6's Dice entry, batched: the warped map is not formed), K7 x1 (the
     loss's flow gradient, K7's Dice entry, its cotangent formed in the
-    kernel)."""
+    kernel), K9 x4 (the flow head's forward, input gradient, and weight
+    gradient in two passes)."""
     want = dict.fromkeys(kernels.launch_counts(), 0)
     want.update(warp_trilinear=11, max_pool_2x_bwd=4, warp_trilinear_bwd=6,
-                warp_labels_soft_hard=2 * batch + 1, warp_labels_bwd=1)
+                warp_labels_soft_hard=2 * batch + 1, warp_labels_bwd=1, flow_head=4)
     return want
 
 

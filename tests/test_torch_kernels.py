@@ -46,7 +46,15 @@ cluster, batch 4 with X 1, two blocks of output channels); one wgmma of its
 layout equals the host product of the same int8 values. F5: a float32 model
 on the card with the caller's TF32 switched on agrees with the same model on
 the CPU within 1e-5 of the largest value (float32 sums in another order;
-TF32 would be about 1e-3)."""
+TF32 would be about 1e-3).
+
+K9 (the flow head's float32 conv C -> 3, forward and both gradients) sums
+float32 products in another order than its plain versions, held in float64:
+each element within 4 * sqrt(N) * 2**-24 of the root of the sum of its N
+squared terms (``ops/flow_head.py::references_and_limits``), its bf16 input
+gradient also 1 bf16 ulp (a rounding boundary); a weight gradient of the
+cotangent rounded to bf16 lies far outside. It sums in a fixed order,
+without atomics: two runs give the same bits."""
 
 import pytest
 import torch
@@ -1047,3 +1055,86 @@ def test_two_stream_pairs_equal_single_pairs_at_64_cubed(cuda_device):
             for (gm, gw), (wm, ww) in zip(got, singles):
                 assert torch.equal(gm, wm) and torch.equal(gw, ww)
             del got
+
+
+# ---- K9, the flow head ---------------------------------------------------------------
+
+def _flow_head_case(device, shape, C, dtype, seed):
+    feat = t(rand((*shape, C), seed), dtype).to(device)
+    w = t(rand((3, C, 3, 3, 3), seed + 1, 0.2)).to(device)
+    b = t(rand((3,), seed + 2)).to(device)
+    cot = t(rand((*shape, 3), seed + 3)).to(device)
+    return feat, w, b, cot
+
+
+def _flow_head_grads(inputs):
+    from multimodal_registration_torch.ops import flow_head as fh
+
+    feat, w, b, cot = inputs
+    leaves = [x.detach().clone().requires_grad_() for x in (feat, w, b)]
+    out = fh.flow_head_conv(*leaves)
+    out.backward(cot)
+    return [out.detach()] + [x.grad for x in leaves]
+
+
+def _share_of_limit(got, want, limit):
+    """The largest error as a share of its element's limit."""
+    return float(((got.double() - want).abs() / limit.clamp_min(1e-300)).max())
+
+
+@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 64), (torch.bfloat16, 256),
+                                     (torch.bfloat16, 5), (torch.bfloat16, 34),
+                                     (torch.float32, 64), (torch.float32, 3)])
+@pytest.mark.parametrize("shape", [(1, 9, 7, 23), (2, 6, 5, 40), (4, 10, 10, 12)],
+                         ids=["z23", "z40", "b4"])
+def test_k9_flow_head_matches_plain(cuda_device, dtype, C, shape):
+    """K9's three entries against the plain versions in float64, each element
+    within its float32 limit (``references_and_limits``); a weight and bias
+    gradient of the cotangent rounded to bf16 beyond it. One launch each,
+    the weight gradient two; twice the same bits."""
+    from multimodal_registration_torch.ops import flow_head as fh
+
+    inputs = _flow_head_case(cuda_device, shape, C, dtype, 40 + C)
+    before = dict(kernels.FLOW_HEAD.entry_launches)
+    got = _flow_head_grads(inputs)
+    torch.cuda.synchronize()
+    after = kernels.FLOW_HEAD.entry_launches
+    for entry in ("flow_head_fwd_launch", "flow_head_dgrad_launch", "flow_head_wgrad_launch",
+                  "flow_head_wgrad_finish_launch"):
+        assert after.get(entry, 0) == before.get(entry, 0) + 1, entry
+    assert got[1].dtype == dtype and got[0].dtype == got[2].dtype == torch.float32
+    want, limits = fh.references_and_limits(*inputs)
+    for name, g, r, lim in zip(("svf", "dfeat", "dw", "db"), got, want, limits):
+        share = _share_of_limit(g, r, lim)
+        assert share <= 1.0, (name, share)
+    feat, _, _, cot = inputs
+    dw, db = fh._wgrad(feat, cot.bfloat16().float())
+    assert _share_of_limit(dw, want[2], limits[2]) > 1.0
+    assert _share_of_limit(db, want[3], limits[3]) > 1.0
+    again = _flow_head_grads(inputs)
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+def test_k9_flow_head_in_the_model_and_on_a_halo_slab(cuda_device):
+    """``VxmDense.flow_head`` goes through K9 (one launch a forward) and
+    equals the plain forward in float64 within its float32 limit; on X slabs
+    with a halo, as the sharded forward cuts them, the cropped slabs' heads
+    equal the whole volume's bit for bit (the same sums)."""
+    from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
+    from multimodal_registration_torch.ops.flow_head import references_and_limits
+    from multimodal_registration_torch.parallel.spatial import with_halo
+
+    model = VxmDense(VxmConfig(enc=(16,) * 4, dec=(16,) * 6), device=cuda_device)
+    with torch.no_grad():
+        model.flow.weight.normal_(0.0, 0.1)
+    feat, _, _, cot = _flow_head_case(cuda_device, (1, 16, 12, 24), 16, torch.bfloat16, 60)
+    with torch.inference_mode():
+        before = kernels.FLOW_HEAD.launches
+        got = model.flow_head(feat)
+        assert kernels.FLOW_HEAD.launches == before + 1
+        slabs = torch.cat([model.flow_head(s)[:, 1:-1]
+                           for s in with_halo(list(feat.chunk(2, dim=1)), 1)], 1)
+    want, limits = references_and_limits(feat, model.flow.weight, model.flow.bias, cot)
+    assert _share_of_limit(got, want[0], limits[0]) <= 1.0
+    assert torch.equal(slabs, got)
