@@ -23,6 +23,9 @@ are quantized and laid out once per parameter version, activation scale and
 stream (:func:`prepared_int8_weights`), and a call is two launches: the
 quantize pass, then the conv (``csrc/conv_int8.cu``). Inference only, as in
 the JAX package: asked for a gradient on the card, the wrapper raises.
+The spans ``int8.quantize`` (the activation's quantization) and
+``int8.conv`` (the conv and its epilogue) mark both steps, on the card and
+in the plain version (``utils/profiling.py::span``).
 
 The conv kernel's tiling is computed here, by :class:`Int8ConvPlan`, and
 handed to the launcher, which checks it against the kernel's constants: a
@@ -43,6 +46,7 @@ import torch.nn.functional as F
 
 from multimodal_registration_torch import kernels
 from multimodal_registration_torch.ops.warp import needs_grad, use_kernel
+from multimodal_registration_torch.utils.profiling import span
 
 _K_CHUNK = 64  # input channels of one k-chunk of the kernel; Cin is padded to a multiple
 _N_TILE = 256  # output channels of one block of the kernel; Cout is padded to a multiple
@@ -112,12 +116,15 @@ def conv3_int8_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, amax,
     type (with ``sums`` the int32 sums before the dequantization)."""
     _check(x, w, b)
     wq, w_scale = quantize_weights(w)
-    s = int8_conv_sums_plain(quantize_act(x, amax), wq)
-    if sums:
-        return s
-    # one rounding per operation, the scales' product first
-    y = s.float() * dequant_scale(w_scale, amax) + b.float()
-    return F.leaky_relu(y, neg_slope).to(x.dtype)
+    with span("int8.quantize"):
+        xq = quantize_act(x, amax)
+    with span("int8.conv"):
+        s = int8_conv_sums_plain(xq, wq)
+        if sums:
+            return s
+        # one rounding per operation, the scales' product first
+        y = s.float() * dequant_scale(w_scale, amax) + b.float()
+        return F.leaky_relu(y, neg_slope).to(x.dtype)
 
 
 def gemm_int8_weights(wq: torch.Tensor, cp: int) -> torch.Tensor:
@@ -260,10 +267,12 @@ def conv3_int8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, amax,
         return out
     stream = kernels.stream_of(x)
     with kernels.on_device_of(x):
-        kernels.CONV3_INT8.launch_entry(
-            "quantize_act_launch", x.data_ptr(), xq.data_ptr(), B * X * Y * Z, Cin, plan.cp, inv,
-            int(x.dtype == torch.bfloat16), stream, count=False)
-        kernels.CONV3_INT8.launch(
-            xq.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            B, X, Y, Z, *plan.launch_args(), _MODES[out.dtype], float(neg_slope), stream)
+        with span("int8.quantize"):
+            kernels.CONV3_INT8.launch_entry(
+                "quantize_act_launch", x.data_ptr(), xq.data_ptr(), B * X * Y * Z, Cin, plan.cp,
+                inv, int(x.dtype == torch.bfloat16), stream, count=False)
+        with span("int8.conv"):
+            kernels.CONV3_INT8.launch(
+                xq.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                B, X, Y, Z, *plan.launch_args(), _MODES[out.dtype], float(neg_slope), stream)
     return out

@@ -2,9 +2,10 @@
 recorded and no profiler range entered without a profiler; under the
 benchmark's low-level profiler start and under ``torch.profiler.profile``,
 the names, nesting and shared root of every registrar call and training
-step; each span's interval around its event in a trace of every scope, and
-no event in the benchmark's trace of the user scope; the ring's count of
-what it drops. Small shapes: 32x32x48, enc/dec 8, float32."""
+step; the int8 convs' spans; each span's interval around its event in a
+trace of every scope, and no event in the benchmark's trace of the user
+scope; the ring's count of what it drops. Small shapes: 32x32x48, enc/dec 8
+(64 for int8), float32."""
 
 import numpy as np
 import pytest
@@ -139,6 +140,30 @@ def test_registrar_spans_nest_under_one_root_a_call(start):
                        ("registrar.predict_tensors", "registrar.predict"),
                        ("registrar.to_device", "registrar.predict_tensors")} | fwd | tail)
     assert {r[6] for r in recs} == {recs[0][6]}  # one thread
+
+
+def test_int8_spans_once_a_quantizable_block_nested_in_the_unet():
+    cfg = vxm_config_from(InferenceConfig(**{**WIDTHS, "enc": [64] * 4, "dec": [64] * 6,
+                                             "quantize": "int8"}))
+    torch.manual_seed(0)
+    model = VxmDense(cfg).eval()
+    model.set_quant_scales({k: 4.0 for k in model.quant_blocks()})
+    mov, fx = pair()
+
+    def forward():
+        with torch.inference_mode():
+            model(mov[..., None], fx[..., None])
+
+    before = profiling.spans()
+    forward()
+    assert profiling.spans() == before
+    recs, _ = recorded(profile_api, forward)
+    by_id = {r[3]: r for r in recs}
+    assert len(model.quant_blocks()) == 9
+    for name in ("int8.quantize", "int8.conv"):
+        mine = [r for r in recs if r[0] == name]
+        assert len(mine) == 9, name
+        assert {by_id[r[4]][0] for r in mine} == {"vxm.unet"}, name
 
 
 def test_rescale_span_opens_only_where_the_tail_rescales():
