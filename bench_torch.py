@@ -77,9 +77,10 @@ W256_CKPT = os.path.join(
     "benchmarks", "learned_w256_160x160x192_26lab.npz",
 )
 
-# kernel launches of one forward at int_steps 5 and int_res 2 (K8: one per int8 conv)
+# kernel launches of one forward at int_steps 5 and int_res 2 (K8: one per int8 conv;
+# K10: one per decoder level that upsamples)
 FORWARD_LAUNCHES = {"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1,
-                    "flow_head": 1}
+                    "flow_head": 1, "up_cat": 3}
 
 
 def _load_w256(cfg: VxmConfig):

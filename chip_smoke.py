@@ -22,7 +22,7 @@ Phases (any failure exits non-zero):
   3. the flagship forward (VxmDense enc [64]x4 / dec [64]x6, int_steps 5,
      svf_res = int_res = 2, bf16) on the in-repo checkpoint at
      (1, 160, 160, 192, 1): kernel path against the plain path, launch
-     counts per forward, ms per forward, pairs/s, peak memory, and each
+     counts per forward (K10 x3 among them), ms per forward, pairs/s, peak memory, and each
      kernel's wrapper time, device time and device operations per call
      beside its bound, its plain version and a PyTorch yardstick that the
      port never calls;
@@ -114,8 +114,8 @@ Phases (any failure exits non-zero):
      11a. ``bench_torch.py`` with its default flags, in a process of its own:
           exit code 0 and exactly three JSON lines on stdout, infer256 bf16,
           infer256 int8, train64 (``bench.py``'s metric names, keys and
-          order), each value > 0; its launches (K1 x1, K2 x5, K3 x1 a
-          forward, K8 x9 in int8); then the kernels at its 192^3 shapes and
+          order), each value > 0; its launches (K1 x1, K2 x5, K3 x1, K10 x3
+          a forward, K8 x9 in int8); then the kernels at its 192^3 shapes and
           its three models through them, against their plain versions;
      11b. the w256 checkpoint in int8 (lazily calibrated on the first pair)
           against bf16 on three held-out pairs at 160x160x192, 26 labels
@@ -161,7 +161,7 @@ Phases (any failure exits non-zero):
      (``multimodal_registration_torch/tools/``), budget 180 s (held on the
      card), ``benchmarks/`` hashed before and after, nothing caught:
      14a. ``ablate`` at 192^3: four positive rows; launches per chain call:
-          K1 x1 (the U-Net, no gradient), K2's fused step x5 (integrate), K2
+          K1 x1 and K10 x3 (the U-Net, no gradient), K2's fused step x5 (integrate), K2
           x1 (warp), none (rescale);
      14b. ``unet_bwd_probe 6`` at 160x160x192: five sections, each with
           finite positive ``_fwd_ms`` and ``_fwd_bwd_ms`` and no ``_error``;
@@ -201,11 +201,11 @@ Phases (any failure exits non-zero):
           against ``model(...)`` at 64^3), then on the in-repo ``learned_ref``
           weights each two-pair arm's ``moved`` and ``warp`` against the
           single pair's (the F2 rule; bit for bit printed), K1 x1, K2's fused
-          step x5, K3 x1 a pair (a call for the batch of 2); the probe's rows
+          step x5, K3 x1, K10 x3 a pair (a call for the batch of 2); the probe's rows
           (its own initial weights) every one > 0; the two-stream speedup
           printed, not held;
      15d. ``entry()``: ``fn(*example_args)`` gives (1, 160, 160, 192, 1) and
-          (1, 80, 80, 96, 3), finite, through K1 x1, K2 x5, K3 x1; with the
+          (1, 80, 80, 96, 3), finite, through K1 x1, K2 x5, K3 x1, K10 x3; with the
           in-repo ``learned_ref`` weights in ``params``, ``fn`` on phase 3's
           pair equals phase 3's forward bit for bit;
  16. K9, the flow head's float32 conv C -> 3 (forward, input gradient, weight
@@ -218,7 +218,12 @@ Phases (any failure exits non-zero):
      each entry's ms, device ms and bound beside its plain version and the
      library conv it replaced; K9 x1 a flagship forward, each entry once a
      loss-and-backward;
- 17. the report, and the card's name and power limit.
+ 17. K10, the U-Net decoder's nearest 2x upsample and skip concatenation, at
+     the three levels of a flagship and of a w256 forward (64 and 256
+     channels, bf16): each launch equal to its plain version bit for bit; a
+     pair's three launches timed beside their byte bound, the plain version
+     and ``F.interpolate`` + ``torch.cat``, the composition K10 replaced;
+ 18. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -550,7 +555,7 @@ DICE_ENTRIES = {"warp_labels_dice_fwd": "warp_labels_dice_fwd_launch",
 TRAIN_WANT = {"conv3_lrelu_pool": 0, "warp_trilinear": 11, "warp_up2x": 0,
               "max_pool_2x_bwd": 4, "warp_trilinear_bwd": 6,
               "warp_labels_soft_hard": 3, "warp_labels_bwd": 1, "conv3_int8": 0,
-              "flow_head": 4}
+              "flow_head": 4, "up_cat": 0}
 
 
 def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
@@ -1064,7 +1069,7 @@ def training_phase(dev, shape, timer, rehearsal, tmp):
     return launches, {"step_s": step_ms / 1e3, "train_peak_mib": peak, "entries": entries}
 
 
-SERVING = ("conv3_lrelu_pool", "warp_trilinear", "warp_up2x")
+SERVING = ("conv3_lrelu_pool", "warp_trilinear", "warp_up2x", "up_cat")
 
 
 def scan_affine(shape, voxel, rot_deg=0.0, shift=(0.0, 0.0, 0.0)):
@@ -1397,7 +1402,8 @@ def published_widths_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     params = load_params_any(W256_CKPT, cfg)
     mov_t = torch.as_tensor(mov_np, device=dev)[None, ..., None]
     fx_t = torch.as_tensor(fx_np, device=dev)[None, ..., None]
-    serving = {"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1, "flow_head": 1}
+    serving = {"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1, "flow_head": 1,
+               "up_cat": 3}
 
     print("# phase 7b: the w256 forward in bf16 (K1, K2 x5, K3, cuDNN for the other convs)",
           flush=True)
@@ -2470,9 +2476,10 @@ def multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     if not rehearsal:
         expect = dict.fromkeys(counts["10a"], 0)
         expect.update({"conv3_lrelu_pool": 2, "warp_trilinear": 5, "warp_up2x": 1,
-                       "flow_head": 2})
+                       "flow_head": 2, "up_cat": 6})
         check(counts["10a"] == expect,
-              f"10a: launched {counts['10a']}, want K1 x2, K2 x5, K3 x1, K9 x2 (a slab each)")
+              f"10a: launched {counts['10a']}, want K1 x2, K2 x5, K3 x1, K9 x2, K10 x6 (K1, "
+              "K9 and K10's three a slab)")
     field_max = float(want["warp"].abs().max())
     numbers["10a"] = f2_rule("10a", got, want, field_max)
     numbers["10a"]["max_abs_warp"] = field_max
@@ -3005,7 +3012,7 @@ def bench_phase(dev, rehearsal):
         for (arch, quantize, metric), got in zip(BENCH_SPECS, per_forward):
             want = dict.fromkeys(got, 0)
             want.update(conv3_lrelu_pool=1, warp_trilinear=5, warp_up2x=1, flow_head=1,
-                        conv3_int8=9 if quantize else 0)
+                        up_cat=3, conv3_int8=9 if quantize else 0)
             check(got == want, f"11a {metric}: a forward launched {got}, want {want}")
     numbers["11a"] = {
         "lines": lines, "per_forward_launches": per_forward,
@@ -3552,13 +3559,14 @@ def studies_phase(dev, rehearsal, tmp):
             _, c, e = counted(lambda: fn(x), *tally)
             per_call[row] = {k: v for k, v in {**c, **e}.items() if v}
     print(f"#   14a launches per chain call: {json.dumps(per_call)}", flush=True)
-    want = {"unet_convs_ms": {"conv3_lrelu_pool": 1, "conv3_lrelu_pool_launch": 1},
+    want = {"unet_convs_ms": {"conv3_lrelu_pool": 1, "conv3_lrelu_pool_launch": 1,
+                              "up_cat": 3, "up_cat_launch": 3},
             "integrate5_halfres_ms": {"warp_trilinear": 5, "self_warp_add_launch": 5},
             "warp_fullres_ms": {"warp_trilinear": 1, "warp_launch": 1},
             "rescale_2x_ms": {}}
     check(rehearsal or per_call == want,
-          f"14a: launches per chain call {per_call}, want K1 x1 (U-Net), K2's fused step x5 "
-          "(integrate), K2 x1 (warp), none (rescale)")
+          f"14a: launches per chain call {per_call}, want K1 x1, K10 x3 (U-Net), K2's fused "
+          "step x5 (integrate), K2 x1 (warp), none (rescale)")
     numbers["14a"] = {"rows": res, "launches_per_call": per_call,
                       "s": time.perf_counter() - t0}
 
@@ -3719,10 +3727,11 @@ def studies_phase(dev, rehearsal, tmp):
 PHASE15_BUDGET_S = 150  # of the script's 1200 s
 PROBE_STEPS = 1000  # 15a: each arm, as 9a's one arm (the JAX probe's 3000 cut for time)
 PROBE_TINY = dict(in_shape=[16, 16, 16], num_labels=4)  # the CPU rehearsal
-# a flagship forward's launches (by kernel and by C entry): K1, K2's fused step x5, K3, K9
+# a flagship forward's launches (by kernel and by C entry): K1, K2's fused step x5, K3, K9,
+# K10 x3
 FWD_WANT = {"conv3_lrelu_pool": 1, "conv3_lrelu_pool_launch": 1, "warp_trilinear": 5,
             "self_warp_add_launch": 5, "warp_up2x": 1, "warp_up2x_launch": 1,
-            "flow_head": 1, "flow_head_fwd_launch": 1}
+            "flow_head": 1, "flow_head_fwd_launch": 1, "up_cat": 3, "up_cat_launch": 3}
 # 15c: the batch of 2's warp against the single pair's on the probe's initial
 # weights (fields of 1e-4 voxel), in bf16 ulps of the field: twice the largest
 # reading, 1.973 ulp (PERF.md section 6); f2_rule says why its 1 ulp
@@ -4150,6 +4159,116 @@ def flow_head_phase(dev, timer, rehearsal, results, timing):
     return counts, numbers
 
 
+PHASE17_BUDGET_S = 60  # of the script's 1200 s
+# the decoder's three (x, skip) levels of a 160x160x192 forward, nb_upsample_skips 1
+UP_CAT_LEVELS = (((1, 10, 10, 12), (1, 20, 20, 24)), ((1, 20, 20, 24), (1, 40, 40, 48)),
+                 ((1, 40, 40, 48), (1, 80, 80, 96)))
+
+
+def up_cat_phase(dev, timer, rehearsal, results, timing):
+    """Phase 17: K10, the decoder's nearest 2x upsample and skip concatenation
+    (``ops/up_cat.py``), at the three levels of a flagship and of a w256
+    forward (:data:`UP_CAT_LEVELS`, bf16, 64 and 256 channels): each launch
+    equal to its plain version bit for bit; then a pair's three launches
+    timed (ms; device ms and operations, the sum of each level's) beside
+    their bound (x and skip read once, the concatenation written once, at
+    3.35 TB/s), the plain version (``impl="plain"``) and the PyTorch
+    composition K10 replaced, ``F.interpolate`` + ``torch.cat`` (the
+    yardstick; the plain version is the same composition behind the
+    wrapper). Returns its numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.ops.up_cat import upsample_cat, upsample_cat_plain
+
+    t_phase = time.perf_counter()
+    numbers = {"shapes": {}}
+    print("# phase 17: K10, the decoder's upsample and concatenation", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def inference(fn):
+        def call():
+            with torch.inference_mode():
+                return fn()
+        return call
+
+    def library(x, skip):  # what the U-Net ran before K10
+        up = F.interpolate(x.permute(0, 4, 1, 2, 3), scale_factor=2, mode="nearest")
+        return torch.cat([up.permute(0, 2, 3, 4, 1), skip], -1)
+
+    for label, C in (("flagship", 64), ("w256", 256)):
+        levels = []
+        for low, high in UP_CAT_LEVELS:
+            if rehearsal:
+                low = (1, *(s // 5 for s in low[1:]))
+                high = (1, *(2 * s for s in low[1:]))
+            levels.append((torch.randn((*low, C), generator=gen, device=dev).bfloat16(),
+                           torch.randn((*high, C), generator=gen, device=dev).bfloat16()))
+        row = {"levels": [], "exact": []}
+        nbytes = 0
+        for x, skip in levels:
+            kernels.reset_launch_counts()
+            with torch.inference_mode():
+                got = upsample_cat(x, skip)
+                want = upsample_cat_plain(x, skip)
+            launched = kernels.UP_CAT.launches
+            exact = bool(torch.equal(got, want))
+            shape = [list(x.shape), list(skip.shape)]
+            print(f"#   17 {label} x {shape[0]} skip {shape[1]}: equal to the plain version "
+                  f"bit for bit: {exact}; launches {launched}", flush=True)
+            check(exact, f"17 {label} {shape}: K10 disagrees with its plain version")
+            check(rehearsal or launched == 1, f"17 {label} {shape}: launched K10 {launched} times")
+            nbytes += x.nbytes + skip.nbytes + got.nbytes
+            lvl = {"shape": shape, "bytes": x.nbytes + skip.nbytes + got.nbytes}
+            lvl["device_ms"], lvl["device_ops"], _ = device_time(
+                inference(lambda: upsample_cat(x, skip)))
+            lvl["library_device_ms"], lvl["library_device_ops"], _ = device_time(
+                inference(lambda: library(x, skip)))
+            row["levels"].append(lvl)
+            row["exact"].append(exact)
+            del got, want
+        # a pair's device time is the sum of its levels', each profiled alone: a
+        # window of several short kernels a call can lose device records (device_time)
+        n = 3 if rehearsal else 20
+        row.update({
+            "ms": timer(inference(lambda: [upsample_cat(x, s) for x, s in levels]), n=n),
+            "plain_ms": timer(inference(lambda: [upsample_cat(x, s, impl="plain")
+                                                 for x, s in levels]), n=n, reps=3),
+            "library_ms": timer(inference(lambda: [library(x, s) for x, s in levels]), n=n),
+            "bound": bound(nbytes, 0, BF16_TENSOR_FLOPS), "bytes": nbytes})
+        for key in ("device_ms", "device_ops", "library_device_ms", "library_device_ops"):
+            vals = [lvl[key] for lvl in row["levels"]]
+            row[key] = None if None in vals else sum(vals)
+        dev_ms = row["device_ms"]
+        share = "not measured" if dev_ms is None else f"{100 * row['bound'][0] / dev_ms:.1f}%"
+        print(f"#   17 {label} a pair's three launches: {row['ms']:.4f} ms, device "
+              f"{ms_or_none(dev_ms)} in {row['device_ops']} operations (levels "
+              f"{[ms_or_none(v['device_ms']) for v in row['levels']]}), bound "
+              f"{row['bound'][0]:.4f} ms ({nbytes / 1e6:.1f} MB; device time at {share} of it), "
+              f"plain {row['plain_ms']:.4f} ms, yardstick {ms_or_none(row['library_ms'])} "
+              f"({ms_or_none(row['library_device_ms'])} device)", flush=True)
+        numbers["shapes"][label] = row
+        del levels
+    flag = numbers["shapes"]["flagship"]
+    timing["up_cat"] = dict(flag, shapes={
+        label: {k: r[k] for k in ("ms", "device_ms", "device_ops", "plain_ms", "library_ms",
+                                  "library_device_ms", "levels", "bytes")}
+        | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+        for label, r in numbers["shapes"].items()})
+    results["up_cat"]["max_abs_err"] = 0.0  # every launch above was equal, bit for bit
+    numbers["total_s"] = time.perf_counter() - t_phase
+    print(f"#   phase 17: {numbers['total_s']:.1f} s of its budget of {PHASE17_BUDGET_S} s",
+          flush=True)
+    check(rehearsal or numbers["total_s"] <= PHASE17_BUDGET_S,
+          f"phase 17 took {numbers['total_s']:.1f} s, over its budget of {PHASE17_BUDGET_S} s")
+    return numbers
+
+
+def ms_or_none(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -4303,9 +4422,10 @@ def main() -> None:
     print(f"#   launches per forward: {per_fwd}")
     if not rehearsal:
         want = dict.fromkeys(per_fwd, 0)
-        want.update({"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1, "flow_head": 1})
+        want.update({"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1, "flow_head": 1,
+                     "up_cat": 3})
         check(per_fwd == want,
-              f"forward launched {per_fwd}, want K1 x1, K2 x5, K3 x1, K9 x1 only")
+              f"forward launched {per_fwd}, want K1 x1, K2 x5, K3 x1, K9 x1, K10 x3 only")
     for k in ("moved", "warp"):
         check(bool(torch.isfinite(out_k[k]).all()), f"forward {k} not finite")
     check(tuple(out_k["moved"].shape) == (1, *shape, 1), "moved has the wrong shape")
@@ -4529,9 +4649,13 @@ def main() -> None:
     head_launches, head_numbers = flow_head_phase(dev, timer, rehearsal, results, timing)
     print(f"#   phase 16 numbers: {json.dumps(head_numbers)}")
 
-    # ---- 17. report ----------------------------------------------------------
+    # ---- 17. the decoder's upsample and concatenation (K10) ----------------------
+    clear_scratch()
+    up_numbers = up_cat_phase(dev, timer, rehearsal, results, timing)
+
+    # ---- 18. report ----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
-    # before it: register() for K1-K3, run_training() for K4-K7, register()
+    # before it: register() for K1-K3 and K10, run_training() for K4-K7, register()
     # with the published config in int8 (7d) for K8
     report = []
     for k in kernels.KERNELS:
@@ -4564,7 +4688,7 @@ def main() -> None:
         if "bound_needed" in row:  # K7: bound_ms counts sectors moved, this one entries needed
             report[-1].update({"bound_needed_ms": row["bound_needed"][0],
                                "bound_needed_by": row["bound_needed"][1]})
-        if "shapes" in row:  # K8: every int8 conv shape of the w256 forward; K9: phase 16's
+        if "shapes" in row:  # K8: every int8 conv shape of the w256 forward; K9, K10: 16's, 17's
             report[-1]["shapes"] = row["shapes"]
         if "w256" in row:  # K4: the pools of the w256 training step, 256 channels (13a)
             report[-1]["w256"] = row["w256"]
@@ -4649,7 +4773,10 @@ def main() -> None:
           + " ".join(f"flow_head_{label}_{name}_device_ms {r[name]['device_ms']}"
                      for label, r in head_numbers["shapes"].items()
                      for name in ("fwd", "dgrad", "wgrad"))
-          + f" phase16_s {head_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
+          + f" phase16_s {head_numbers['total_s']:.1f} "
+          + " ".join(f"up_cat_{label}_device_ms {r['device_ms']}"
+                     for label, r in up_numbers["shapes"].items())
+          + f" phase17_s {up_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

@@ -242,8 +242,14 @@ FLOW_HEAD = Kernel(
         "flow_head_wgrad_finish_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
 )
+UP_CAT = Kernel(
+    "up_cat", "up_cat.cu", "up_cat_launch",
+    # x, skip, out, B, X, Y, Z, x row bytes, skip row bytes, access bytes, stream
+    [_P, _P, _P, *[_I] * 7, _P],
+    "none: multimodal_registration_tpu/models/unet.py:272 is XLA's repeat and concatenate",
+)
 KERNELS = (CONV3_LRELU_POOL, WARP_TRILINEAR, WARP_UP2X, MAX_POOL_2X_BWD,
-           WARP_TRILINEAR_BWD, WARP_LABELS, WARP_LABELS_BWD, CONV3_INT8, FLOW_HEAD)
+           WARP_TRILINEAR_BWD, WARP_LABELS, WARP_LABELS_BWD, CONV3_INT8, FLOW_HEAD, UP_CAT)
 
 
 def launch_counts() -> dict:

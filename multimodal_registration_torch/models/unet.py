@@ -7,7 +7,9 @@ Conv2D lowering, a TPU layout workaround, is not ported):
     levels;
   * decoder: one 3³ conv + LeakyReLU per level; after each of the first
     ``len(enc) - nb_upsample_skips`` decoder levels, 2x nearest upsampling
-    and skip concatenation in ``[upsampled, skip]`` order;
+    and skip concatenation in ``[upsampled, skip]`` order, one pass of kernel
+    K10 in inference (``ops/up_cat.py``), autograd's upsample and
+    ``torch.cat`` under grad;
   * remaining ``dec[len(enc):]`` entries are extra convs at the final
     resolution.
 
@@ -42,6 +44,7 @@ from multimodal_registration_torch.device import full_fp32_convs
 from multimodal_registration_torch.ops.conv_int8 import conv3_int8
 from multimodal_registration_torch.ops.conv_pool import conv3_lrelu_pool
 from multimodal_registration_torch.ops.pool import max_pool_2x
+from multimodal_registration_torch.ops.up_cat import upsample_cat
 from multimodal_registration_torch.ops.warp import needs_grad
 
 
@@ -92,11 +95,6 @@ class ConvBlock(nn.Module):
         full-res activation."""
         return conv3_lrelu_pool(x.to(self.dtype), self.conv.weight, self.conv.bias,
                                 0.2, impl=impl)
-
-
-def _upsample_nearest_2x(x):
-    # (B, X, Y, Z, C) -> (B, 2X, 2Y, 2Z, C); Keras UpSampling3D parity
-    return _ndhwc(F.interpolate(_ncdhw(x), scale_factor=2, mode="nearest"))
 
 
 class Unet(nn.Module):
@@ -168,4 +166,4 @@ class WholeVolume:
         return max_pool_2x(x, tie=self.pool_tie, impl=self.impl)
 
     def up_cat(self, x, skip):
-        return torch.cat([_upsample_nearest_2x(x), skip], dim=-1)
+        return upsample_cat(x, skip, impl=self.impl)

@@ -31,8 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from multimodal_registration_torch.models.unet import _upsample_nearest_2x
 from multimodal_registration_torch.ops.pool import max_pool_2x
+from multimodal_registration_torch.ops.up_cat import upsample_cat
 from multimodal_registration_torch.parallel.mesh import gather, split_slabs
 
 
@@ -68,7 +68,7 @@ class Slabs:
         return [max_pool_2x(x, tie=self.pool_tie, impl=self.impl) for x in xs]
 
     def up_cat(self, xs, skips):
-        return [torch.cat([_upsample_nearest_2x(x), s], dim=-1) for x, s in zip(xs, skips)]
+        return [upsample_cat(x, s, impl=self.impl) for x, s in zip(xs, skips)]
 
 
 def unet_slabs(models: dict, devices, moving, fixed, impl=None) -> list:

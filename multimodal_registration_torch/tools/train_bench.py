@@ -48,10 +48,11 @@ def step_launches(batch: int) -> dict:
     K6's Dice entry, batched: the warped map is not formed), K7 x1 (the
     loss's flow gradient, K7's Dice entry, its cotangent formed in the
     kernel), K9 x4 (the flow head's forward, input gradient, and weight
-    gradient in two passes)."""
+    gradient in two passes). No K10: under grad the decoder's upsample and
+    concatenation are autograd's."""
     want = dict.fromkeys(kernels.launch_counts(), 0)
     want.update(warp_trilinear=11, max_pool_2x_bwd=4, warp_trilinear_bwd=6,
-                warp_labels_soft_hard=2 * batch + 1, warp_labels_bwd=1, flow_head=4)
+                warp_labels_soft_hard=2 * batch + 1, warp_labels_bwd=1, flow_head=4, up_cat=0)
     return want
 
 

@@ -2,10 +2,11 @@
 recorded and no profiler range entered without a profiler; under the
 benchmark's low-level profiler start and under ``torch.profiler.profile``,
 the names, nesting and shared root of every registrar call and training
-step; the int8 convs' spans; each span's interval around its event in a
-trace of every scope, and no event in the benchmark's trace of the user
-scope; the ring's count of what it drops. Small shapes: 32x32x48, enc/dec 8
-(64 for int8), float32."""
+step; the int8 convs' spans; the decoder's upsample-and-concatenate span
+``unet.up_cat`` (three a forward, kernel K10 or its plain version); each
+span's interval around its event in a trace of every scope, and no event in
+the benchmark's trace of the user scope; the ring's count of what it drops.
+Small shapes: 32x32x48, enc/dec 8 (64 for int8), float32."""
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ WIDTHS = {"enc": [8] * 4, "dec": [8] * 6, "compute_dtype": "float32"}
 FORWARD = {"vxm.unet", "vxm.flow_head", "vxm.tail", "vxm.integrate", "vxm.fullres", "vxm.warp"}
 # the loss reads no moved image; with grad_res 1 Grad reads the full-res field
 TRAIN_FORWARD = FORWARD - {"vxm.warp"}
+UP_CAT = ("unet.up_cat", "vxm.unet")  # three a forward: the decoder's upsample and concatenation
 
 
 @pytest.fixture(autouse=True)
@@ -128,6 +130,7 @@ def test_registrar_spans_nest_under_one_root_a_call(start):
     assert [name for name, _ in roots] == ["registrar.predict_tensors", "registrar.predict"]
     first, second = roots.values()
     fwd = {(n, "registrar.predict_tensors") for n in ("vxm.unet", "vxm.flow_head", "vxm.tail")}
+    fwd.add(UP_CAT)
     tail = {(n, "vxm.tail") for n in FORWARD - {"vxm.unet", "vxm.flow_head", "vxm.tail"}}
     # the calibration's forward nests under registrar.calibrate, on the first call only
     calibration = {("registrar.calibrate", "registrar.predict_tensors"),
@@ -184,7 +187,7 @@ def test_training_spans_nest_under_one_root_a_step(start, trainer):
     assert [name for name, _ in roots] == ["train.step", "train.val"]
     step, val = roots.values()
     forward = ({("vxm.unet", "train.loss"), ("vxm.flow_head", "train.loss"),
-                ("vxm.tail", "train.loss")}
+                ("vxm.tail", "train.loss"), UP_CAT}
                | {(n, "vxm.tail") for n in TRAIN_FORWARD - {"vxm.unet", "vxm.flow_head",
                                                             "vxm.tail"}})
     assert step == ({("train.step", None)} | forward
@@ -205,9 +208,9 @@ def test_each_span_contains_its_profiler_event():
                      if e.name() == n and e.device_type() == torch.autograd.DeviceType.CPU)
            for n in names}
     assert names == FORWARD | {"registrar.predict", "registrar.predict_tensors",
-                               "registrar.to_device", "registrar.to_host"}
+                               "registrar.to_device", "registrar.to_host", UP_CAT[0]}
     for n in names:
-        assert len(spans[n]) == len(evs[n]) == 2, n
+        assert len(spans[n]) == len(evs[n]) == (6 if n == UP_CAT[0] else 2), n
         for (s, e), (es, ee) in zip(spans[n], evs[n]):
             assert s <= es and ee <= e, n
             assert es - s < 1_000_000 and e - ee < 1_000_000, n
