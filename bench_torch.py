@@ -14,8 +14,8 @@ memory go to stderr as ``#`` lines.
 
 Each line times the registration forward (``VxmDense``, ``int_steps`` 5,
 ``svf_res`` = ``int_res`` = 2, bf16) at 192³, batch 1: one warm-up forward,
-whose kernel launches are counted and checked (K1 x1, K2 x5, K3 x1, and K8
-once per int8 conv), then ``--blocks`` blocks of ``--iters`` chained
+whose kernel launches, by kernel and by C entry, must be
+``VxmDense.kernel_launches()``, then ``--blocks`` blocks of ``--iters`` chained
 forwards (each forward's moved image is the next one's moving image), each
 block timed with CUDA events; the best block is reported. The timed blocks
 must launch the same kernels again, every forward: a forward that fell back
@@ -76,11 +76,6 @@ W256_CKPT = os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
     "benchmarks", "learned_w256_160x160x192_26lab.npz",
 )
-
-# kernel launches of one forward at int_steps 5 and int_res 2 (K8: one per int8 conv;
-# K10: one per decoder level that upsamples)
-FORWARD_LAUNCHES = {"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1,
-                    "flow_head": 1, "up_cat": 3}
 
 
 def _load_w256(cfg: VxmConfig):
@@ -160,8 +155,7 @@ def measure(shape=SHAPE, iters=10, batch=1, arch="train64", blocks=3, quantize="
     print(f"# {arch}{' ' + quantize if quantize else ''}: {tuple(shape)}, batch {batch} on {dev}",
           file=sys.stderr)
     model = bench_model(arch, quantize, shape, batch, dev)
-    want = dict.fromkeys(kernels.launch_counts(), 0)
-    want.update(FORWARD_LAUNCHES, conv3_int8=len(model.quant_blocks()) if quantize else 0)
+    want = model.kernel_launches()
     mov = torch.zeros((batch, *shape, 1), dtype=torch.float32, device=dev)
     fx = torch.ones((batch, *shape, 1), dtype=torch.float32, device=dev)
 
@@ -176,7 +170,7 @@ def measure(shape=SHAPE, iters=10, batch=1, arch="train64", blocks=3, quantize="
         per_forward = kernels.launch_counts()
         print(f"# launches per forward: {json.dumps(per_forward)}", file=sys.stderr)
         if dev.type == "cuda":
-            if per_forward != want:
+            if {**per_forward, **kernels.entry_launch_counts()} != want:
                 raise RuntimeError(f"the forward launched {per_forward}, want {want}")
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
@@ -194,7 +188,7 @@ def measure(shape=SHAPE, iters=10, batch=1, arch="train64", blocks=3, quantize="
     print(f"# launches in all: {json.dumps(total)}", file=sys.stderr)
     if dev.type == "cuda":
         n = 1 + blocks * iters
-        if total != {k: v * n for k, v in want.items()}:
+        if {**total, **kernels.entry_launch_counts()} != {k: v * n for k, v in want.items()}:
             raise RuntimeError(f"the timed forwards launched {total}, want {n} x {want}")
         print(f"# best {best * 1000:.4f} ms/forward, peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB", file=sys.stderr)

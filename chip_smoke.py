@@ -152,9 +152,6 @@ Phases (any failure exits non-zero):
           ``infer256``: every measured row finite and positive, every
           derived row finite, each full step within 25 % of 13a's s/step of
           its widths, each profile naming K2, K4, K5, K6 and K7;
-     13c. ``roofline`` at 192^3 for the flagship and w256 forwards against
-          phase 11's measured forwards: ``forward_mfu`` = sol_ms_flops /
-          measured ms;
      13d. ``pipeline_throughput --subjects 3 --configs
           default,noprefetch,jobs2``: every subject ok, subjects/min;
  14. the studies ``benchmarks/`` held only in JAX, through the port's tools
@@ -552,10 +549,6 @@ def fused_step_phase(dev, half, results, rehearsal):
 # the report's rows of the Dice entries of K6 and K7, by their C entries
 DICE_ENTRIES = {"warp_labels_dice_fwd": "warp_labels_dice_fwd_launch",
                 "warp_labels_dice_bwd": "warp_labels_dice_bwd_launch"}
-TRAIN_WANT = {"conv3_lrelu_pool": 0, "warp_trilinear": 11, "warp_up2x": 0,
-              "max_pool_2x_bwd": 4, "warp_trilinear_bwd": 6,
-              "warp_labels_soft_hard": 3, "warp_labels_bwd": 1, "conv3_int8": 0,
-              "flow_head": 4, "up_cat": 0}
 
 
 def training_kernels_phase(dev, shape, timer, results, timing, rehearsal):
@@ -1033,9 +1026,10 @@ def training_phase(dev, shape, timer, rehearsal, tmp):
     trainer.train_step_banked(gen, bank, si, ti)
     per_step = kernels.launch_counts()
     step_entries = kernels.entry_launch_counts()
+    want = trainer.step_launches()
     print(f"#   launches per training step: {per_step}; by entry {step_entries}")
     if not rehearsal:
-        check(per_step == TRAIN_WANT, f"a step launched {per_step}, want {TRAIN_WANT}")
+        check(per_step == want, f"a step launched {per_step}, want {want}")
         # the loss's Dice through K6's and K7's Dice entries; K7's general
         # entry (a dense cotangent) no more
         check(step_entries.get("warp_labels_dice_fwd_launch") == 1
@@ -1066,10 +1060,19 @@ def training_phase(dev, shape, timer, rehearsal, tmp):
           f"the step with tie='first' failed: {out1['history']}, {first}")
     print(f"#   one step with pool_tie='first': loss {out1['history'][0]['loss']:.5f}, "
           f"K4 launches {first['max_pool_2x_bwd']}")
-    return launches, {"step_s": step_ms / 1e3, "train_peak_mib": peak, "entries": entries}
+    return launches, {"step_s": step_ms / 1e3, "train_peak_mib": peak, "entries": entries,
+                      "step_launches": want}
 
 
-SERVING = ("conv3_lrelu_pool", "warp_trilinear", "warp_up2x", "up_cat")
+def forward_launches(settings: dict) -> dict:
+    """``VxmDense.kernel_launches`` of the model that an inference config's
+    ``settings`` build, read off a copy on the meta device."""
+    from multimodal_registration_torch.infer.config import InferenceConfig
+    from multimodal_registration_torch.infer.register import vxm_config_from
+    from multimodal_registration_torch.models.vxm_dense import VxmDense
+
+    cfg = vxm_config_from(InferenceConfig.from_dict(dict(settings)))
+    return VxmDense(cfg, device="meta").kernel_launches()
 
 
 def scan_affine(shape, voxel, rot_deg=0.0, shift=(0.0, 0.0, 0.0)):
@@ -1128,10 +1131,13 @@ def kernels_vs_plain(label, out_k, out_p):
     return {"d_warp": d_warp, "d_moved": d_moved, "d_moved_orig": d_orig}
 
 
-def launched(label, counts, names=SERVING, rehearsal=False):
+def launched(label, counts, want, rehearsal=False):
+    """Each kernel that ``want`` launches (a forward's launches,
+    ``VxmDense.kernel_launches``) was launched at least once."""
     print(f"#   {label}: launches {counts}")
     if not rehearsal:
-        check(all(counts[k] >= 1 for k in names), f"{label}: a kernel was not launched: {counts}")
+        check(all(counts[k] >= 1 for k in counts if want.get(k)),
+              f"{label}: a kernel was not launched: {counts}, want {want}")
 
 
 def spline_phase(label, out, fixed_proc_path, moving_nii, timer, dev, rehearsal):
@@ -1311,10 +1317,10 @@ def k8_phase(dev, timer, rehearsal):
     return rows
 
 
-def w256_forward(label, model, mov_t, fx_t, want, timer, rehearsal):
-    """7b/7c: one forward of the w256 model through the kernels (launches
-    counted from zero) against the same through their plain versions, then
-    ms per forward, pairs/s, peak memory and a profile."""
+def w256_forward(label, model, mov_t, fx_t, timer, rehearsal):
+    """7b/7c: one forward of the w256 model through the kernels (its launches
+    ``model.kernel_launches()``) against the same through their plain
+    versions, then ms per forward, pairs/s, peak memory and a profile."""
     import torch
 
     from multimodal_registration_torch import kernels
@@ -1323,12 +1329,12 @@ def w256_forward(label, model, mov_t, fx_t, want, timer, rehearsal):
         kernels.reset_launch_counts()
         out_k = model(mov_t, fx_t)
         counts = kernels.launch_counts()
+        got = {**counts, **kernels.entry_launch_counts()}
         out_p = model(mov_t, fx_t, impl="plain")
-    print(f"#   {label}: launches per forward {counts}")
+    print(f"#   {label}: launches per forward {got}")
+    want = model.kernel_launches()
     if not rehearsal:
-        expected = dict.fromkeys(counts, 0)
-        expected.update(want)
-        check(counts == expected, f"{label}: the forward launched {counts}, want {want}")
+        check(got == want, f"{label}: the forward launched {got}, want {want}")
     for k in ("moved", "warp"):
         check(bool(torch.isfinite(out_k[k]).all()), f"{label}: {k} not finite")
     shape = tuple(mov_t.shape[1:4])
@@ -1402,19 +1408,17 @@ def published_widths_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     params = load_params_any(W256_CKPT, cfg)
     mov_t = torch.as_tensor(mov_np, device=dev)[None, ..., None]
     fx_t = torch.as_tensor(fx_np, device=dev)[None, ..., None]
-    serving = {"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1, "flow_head": 1,
-               "up_cat": 3}
 
     print("# phase 7b: the w256 forward in bf16 (K1, K2 x5, K3, cuDNN for the other convs)",
           flush=True)
     reg16 = Registrar(cfg, params, device=dev)
     out16, numbers["7b"], counts["7b"] = w256_forward("7b bf16", reg16.model, mov_t, fx_t,
-                                                      serving, timer, rehearsal)
+                                                      timer, rehearsal)
     print("# phase 7c: the w256 forward in int8 with the in-repo sidecar (K8 on 9 convs)",
           flush=True)
     reg8 = Registrar(cfg8, params, device=dev, quant_scales=load_scales(W256_SIDECAR))
     out8, numbers["7c"], counts["7c"] = w256_forward(
-        "7c int8", reg8.model, mov_t, fx_t, dict(serving, conv3_int8=9), timer, rehearsal)
+        "7c int8", reg8.model, mov_t, fx_t, timer, rehearsal)
     # what int8 costs against bf16: a record (the quantities of
     # benchmarks/quantize_quality_results.json), not a gate
     d = (out8["flow_fullres"] - out16["flow_fullres"]).abs()
@@ -1446,9 +1450,10 @@ def published_widths_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     wall = time.perf_counter() - t0
     counts["7d"] = kernels.launch_counts()
     print(f"#   7d: register() {wall:.3f} s wall, timings (s) {json.dumps(out['timings'])}")
-    launched("7d", counts["7d"], names=SERVING + ("conv3_int8",), rehearsal=rehearsal)
-    check(rehearsal or counts["7d"]["conv3_int8"] == 9,
-          f"7d: register() launched K8 {counts['7d']['conv3_int8']} times, want 9")
+    want = reg.model.kernel_launches()
+    launched("7d", counts["7d"], want, rehearsal)
+    check(rehearsal or counts["7d"]["conv3_int8"] == want["conv3_int8"],
+          f"7d: register() launched {counts['7d']}, want K8 {want['conv3_int8']} times")
     finite_files(out["paths"].values())
     check(os.path.exists(lazy_path), "7d: the lazy calibration wrote no sidecar")
     cli_path = os.path.join(tmp, "cli.quant.json")
@@ -1541,7 +1546,7 @@ def real_scan_phases(dev, timer, rehearsal, cfg, params, fx_np, mov_np, tmp):
                 print(f"#   {label}: register() {wall:.3f} s wall, timings (s) "
                       f"{json.dumps(outs[side]['timings'])}")
         finite_files(outs["kernels"]["paths"].values())
-        launched(label, counts[label], rehearsal=rehearsal)
+        launched(label, counts[label], reg_k.model.kernel_launches(), rehearsal)
         numbers[label] = kernels_vs_plain(label, outs["kernels"], outs["plain"])
         numbers[label]["timings"] = outs["kernels"]["timings"]
         return outs["kernels"], mov_nii, os.path.join(d, "kernels")
@@ -1579,7 +1584,7 @@ def real_scan_phases(dev, timer, rehearsal, cfg, params, fx_np, mov_np, tmp):
     print(f"#   6c: {len(coords)} tiles of {tile} in chunks of {reg_k.max_batch}; timings (s) "
           f"{json.dumps(outs['kernels']['timings'])}")
     finite_files(outs["kernels"]["paths"].values())
-    launched("6c", counts["6c"], rehearsal=rehearsal)
+    launched("6c", counts["6c"], reg_k.model.kernel_launches(), rehearsal)
     chunks = -(-len(coords) // reg_k.max_batch)
     if not rehearsal:
         check(counts["6c"]["conv3_lrelu_pool"] == chunks and counts["6c"]["warp_up2x"] == chunks,
@@ -1632,7 +1637,7 @@ def real_scan_phases(dev, timer, rehearsal, cfg, params, fx_np, mov_np, tmp):
     print(f"#   6d: bids_two_steps {wall:.3f} s wall (two models loaded and built, the CLI's "
           "whole run)")
     finite_files(outs["kernels"]["paths"].values())
-    launched("6d", counts["6d"], rehearsal=rehearsal)
+    launched("6d", counts["6d"], reg_k.model.kernel_launches(), rehearsal)
     if not rehearsal:
         check(counts["6d"]["conv3_lrelu_pool"] == 2 and counts["6d"]["warp_up2x"] == 2,
               f"6d: two forwards, one per model, want K1 x2, K3 x2: {counts['6d']}")
@@ -1719,7 +1724,7 @@ def real_scan_phases(dev, timer, rehearsal, cfg, params, fx_np, mov_np, tmp):
               f"{rows['jac'][0]:.5f}% of {int(rows['jac'][4])} voxels (device rows equal the "
               "CPU's within 0 / 1e-6 / 1e-5)")
     counts["6e"] = kernels.launch_counts()
-    launched("6e", counts["6e"], ("warp_trilinear",), rehearsal)
+    launched("6e", counts["6e"], {"warp_trilinear": 1}, rehearsal)
     numbers["6e"] = {"wall_s": time.perf_counter() - t0, **evals}
     print(f"#   6e: {numbers['6e']['wall_s']:.3f} s wall for both evaluations, on the device "
           "and on the CPU")
@@ -1895,6 +1900,9 @@ def pipeline_phase(dev, rehearsal, tmp):
     t_phase = time.perf_counter()
     counts, numbers = {}, {}
     cfg_path = os.path.join(HERE, "config", "config_inference.json")
+    with open(cfg_path) as f:
+        settings = json.load(f)
+    want, want8 = forward_launches(settings), forward_launches(dict(settings, quantize="int8"))
     if rehearsal:
         fixed, moving = ((40, 40, 32), (0.8, 0.8, 1.2)), ((52, 52, 20), (0.625, 0.625, 2.0))
     else:
@@ -1961,7 +1969,7 @@ def pipeline_phase(dev, rehearsal, tmp):
         data, out_a, W256_CKPT, config_path=cfg_path, device=dev.type))
     counts["8a"] = kernels.launch_counts()
     numbers["8a"] = report("8a", results, summary["total_seconds"], wall, busy)
-    launched("8a", counts["8a"], rehearsal=rehearsal)
+    launched("8a", counts["8a"], want, rehearsal)
     check(rehearsal or counts["8a"]["conv3_lrelu_pool"] == len(PIPELINE_SUBJECTS),
           f"8a: K1 ran {counts['8a']['conv3_lrelu_pool']} times, want one a subject")
     check(not nifti._ASYNC_ENABLED and not nifti._PENDING_IMGS,
@@ -2016,7 +2024,7 @@ def pipeline_phase(dev, rehearsal, tmp):
                                    device=dev.type)
     numbers["8c"] = {"wall_s": time.perf_counter() - t0, "timings": res_c[0].timings}
     counts["8c"] = kernels.launch_counts()
-    launched("8c", counts["8c"], rehearsal=rehearsal)
+    launched("8c", counts["8c"], want, rehearsal)
     check(res_c[0].ok and sum_c["n_affine_fallback"] == 1,
           f"8c: the fallback was not taken: {sum_c} {res_c[0].error}")
     check(rehearsal or counts["8c"]["conv3_lrelu_pool"] == 2,
@@ -2040,8 +2048,6 @@ def pipeline_phase(dev, rehearsal, tmp):
     # ---- 8d. int8 with the in-repo sidecar: K8 inside the pipeline
     print("# phase 8d: sub-01 with quantize int8 and the in-repo sidecar (K8 on 9 convs), "
           "against register() through the plain versions", flush=True)
-    with open(cfg_path) as f:
-        settings = json.load(f)
     cfg8_path = os.path.join(tmp, "config_inference_int8.json")
     with open(cfg8_path, "w") as f:
         json.dump(dict(settings, quantize="int8"), f)
@@ -2053,9 +2059,9 @@ def pipeline_phase(dev, rehearsal, tmp):
     numbers["8d"] = {"wall_s": time.perf_counter() - t0, "timings": res_d[0].timings}
     counts["8d"] = kernels.launch_counts()
     check(res_d[0].ok, f"8d failed: {res_d[0].error}")
-    launched("8d", counts["8d"], names=SERVING + ("conv3_int8",), rehearsal=rehearsal)
-    check(rehearsal or counts["8d"]["conv3_int8"] == 9,
-          f"8d: K8 ran {counts['8d']['conv3_int8']} times, want 9")
+    launched("8d", counts["8d"], want8, rehearsal)
+    check(rehearsal or counts["8d"]["conv3_int8"] == want8["conv3_int8"],
+          f"8d: K8 ran {counts['8d']['conv3_int8']} times, want {want8['conv3_int8']}")
     cfg8 = InferenceConfig.from_json(cfg8_path)
     reg_p = Registrar(cfg8, params, device=dev, impl="plain", quant_scales=load_scales(W256_SIDECAR))
     pdir = os.path.join(tmp, "8d_plain")
@@ -2266,9 +2272,9 @@ def learning_phase(dev, rehearsal, tmp):
                      "per_step": per_step, "found": found}
     print(f"#   9c: {trace_path} ({numbers['9c']['trace_mb']:.1f} MB, {len(names)} kernel names); "
           f"launches per step {per_step}; kernels named in the trace {found}", flush=True)
+    want = trainer.step_launches()
     if not rehearsal:
-        check(per_step == {k: float(v) for k, v in TRAIN_WANT.items()},
-              f"9c: a step launched {per_step}, want {TRAIN_WANT}")
+        check(per_step == want, f"9c: a step launched {per_step}, want {want}")
         check(all(found.values()), f"9c: the trace does not name every training kernel: {found}")
     del trainer, bank
 
@@ -2279,9 +2285,6 @@ def learning_phase(dev, rehearsal, tmp):
 
 
 PHASE10_BUDGET_S = 120  # of the script's 1200 s
-# a data-parallel step of 2 replicas at batch 2: each replica runs what a
-# step at batch 1 runs (TRAIN_WANT)
-DP_STEP_WANT = {k: 2 * v for k, v in TRAIN_WANT.items()}
 
 
 def mesh_devices_of(dev, n):
@@ -2472,14 +2475,11 @@ def multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     kernels.reset_launch_counts()
     got = predicted(sharded, mov1, fx1)
     counts["10a"] = kernels.launch_counts()
-    print(f"#   10a: launches per sharded forward {counts['10a']}")
+    seen = {**counts["10a"], **kernels.entry_launch_counts()}
+    print(f"#   10a: launches per sharded forward {seen}")
+    expect = single.model.kernel_launches(slabs=2)
     if not rehearsal:
-        expect = dict.fromkeys(counts["10a"], 0)
-        expect.update({"conv3_lrelu_pool": 2, "warp_trilinear": 5, "warp_up2x": 1,
-                       "flow_head": 2, "up_cat": 6})
-        check(counts["10a"] == expect,
-              f"10a: launched {counts['10a']}, want K1 x2, K2 x5, K3 x1, K9 x2, K10 x6 (K1, "
-              "K9 and K10's three a slab)")
+        check(seen == expect, f"10a: launched {seen}, want {expect} (K1, K9, K10 x3 a slab)")
     field_max = float(want["warp"].abs().max())
     numbers["10a"] = f2_rule("10a", got, want, field_max)
     numbers["10a"]["max_abs_warp"] = field_max
@@ -2527,13 +2527,13 @@ def multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
         got = predicted(reg, movs[:n], fxs[:n])
         key = f"10b_{data}x{space}"
         counts[key] = kernels.launch_counts()
+        seen = {**counts[key], **kernels.entry_launch_counts()}
         check(tuple(got["warp"].shape) == tuple(want["warp"].shape), f"{label}: wrong shape")
-        print(f"#   {label}: launches {counts[key]}")
+        print(f"#   {label}: launches {seen}")
+        # a batch of 3 is padded to 4: two rows of 2, each a forward on space slabs
+        expect = {k: data * v for k, v in single.model.kernel_launches(space).items()}
         if not rehearsal:
-            rows = data  # a batch of 3 is padded to 4: two rows of 2
-            check(counts[key]["conv3_lrelu_pool"] == rows * space
-                  and counts[key]["warp_trilinear"] == 5 * rows
-                  and counts[key]["warp_up2x"] == rows, f"{label}: launched {counts[key]}")
+            check(seen == expect, f"{label}: launched {seen}, want {expect}")
         numbers["10b"][key] = f2_rule(label, got, want, float(want["warp"].abs().max()))
         numbers["10b"][key].update(kernel_vs_plain(label, got, predicted(
             ShardedRegistrar(cfg, params, mb, impl="plain"), movs[:n], fxs[:n])))
@@ -2577,10 +2577,11 @@ def multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     kernels.reset_launch_counts()
     got = predicted(sharded8, mov1, fx1)
     counts["10c"] = kernels.launch_counts()
-    print(f"#   10c: launches per sharded int8 forward {counts['10c']}")
+    seen = {**counts["10c"], **kernels.entry_launch_counts()}
+    print(f"#   10c: launches per sharded int8 forward {seen}")
+    expect = single8.model.kernel_launches(slabs=2)
     if not rehearsal:
-        check(counts["10c"]["conv3_int8"] == 18 and counts["10c"]["conv3_lrelu_pool"] == 2,
-              f"10c: want K8 x18 (9 convs on 2 slabs), K1 x2: {counts['10c']}")
+        check(seen == expect, f"10c: launched {seen}, want {expect} (K8 on 9 convs of 2 slabs)")
     # the int8 convs' sums are exact; what is left is the float32 head
     # (cuDNN on a slab's shape may sum in another order) and the bf16
     # integration after it: the F2 rule
@@ -2699,6 +2700,7 @@ def multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
         loss = float(aux["loss"])
         if n == 2:
             counts["10e_step"] = kernels.launch_counts()
+            want_step = trainer.step_launches()
         steps[n] = (loss, {k: (p.detach().clone(), p.grad.detach().clone())
                            for k, p in trainer.model.named_parameters()})
         gen = trainer.generator(13)
@@ -2712,8 +2714,8 @@ def multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
           f"{step_peak[1]:.1f} MiB (median of 5, {'CUDA events' if cuda else 'host clock, CPU'})",
           flush=True)
     if not rehearsal:
-        check(counts["10e_step"] == DP_STEP_WANT,
-              f"10e: a 2-replica step launched {counts['10e_step']}, want {DP_STEP_WANT}")
+        check(counts["10e_step"] == want_step,
+              f"10e: a 2-replica step launched {counts['10e_step']}, want {want_step}")
     (loss2, p2), (loss1, p1) = steps[2], steps[1]
     # The loss to the JAX package's tolerance. The gradients to the bounds
     # of phase 5's kernel-vs-plain check: bf16 convs at batch 1 a replica
@@ -2971,7 +2973,9 @@ def bench_phase(dev, rehearsal):
 
     import torch
 
+    import bench_torch
     from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.models.vxm_dense import VxmDense
 
     t_phase = time.perf_counter()
     counts, numbers = {}, {}
@@ -3007,13 +3011,13 @@ def bench_phase(dev, rehearsal):
     check(len(per_forward) == len(in_all) == len(BENCH_SPECS),
           f"11a: the bench's stderr lacks its launch counts: {stderr[-2000:]}")
     counts["11a"] = {k: sum(c[k] for c in in_all) for k in in_all[0]}
+    wants = [VxmDense(bench_torch.model_config(arch, quantize), device="meta").kernel_launches()
+             for arch, quantize, _ in BENCH_SPECS]
     if not rehearsal:
         check(len(best) == len(BENCH_SPECS), "11a: the bench's stderr lacks its best times")
-        for (arch, quantize, metric), got in zip(BENCH_SPECS, per_forward):
-            want = dict.fromkeys(got, 0)
-            want.update(conv3_lrelu_pool=1, warp_trilinear=5, warp_up2x=1, flow_head=1,
-                        up_cat=3, conv3_int8=9 if quantize else 0)
-            check(got == want, f"11a {metric}: a forward launched {got}, want {want}")
+        for (_, _, metric), got, want in zip(BENCH_SPECS, per_forward, wants):
+            check(got == {k: want[k] for k in got},
+                  f"11a {metric}: a forward launched {got}, want {want}")
     numbers["11a"] = {
         "lines": lines, "per_forward_launches": per_forward,
         "best_ms": [b[0] for b in best], "peak_mib": [b[1] for b in best],
@@ -3030,7 +3034,9 @@ def bench_phase(dev, rehearsal):
     kernels.reset_launch_counts()
     numbers["11b"] = int8_quality(dev, rehearsal)
     counts["11b"] = kernels.launch_counts()
-    launched("11b", counts["11b"], names=SERVING + ("conv3_int8",), rehearsal=rehearsal)
+    with open(os.path.join(HERE, "config", "config_inference.json")) as f:
+        launched("11b", counts["11b"], forward_launches(dict(json.load(f), quantize="int8")),
+                 rehearsal)
     numbers["total_s"] = time.perf_counter() - t_phase
     print(f"#   phase 11: {numbers['total_s']:.1f} s of its budget of {PHASE11_BUDGET_S} s "
           f"(11a {numbers['11a_s']:.1f} s, the bench's process "
@@ -3075,12 +3081,12 @@ def quality_phase(dev, rehearsal, tmp):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    def arms_launched(label, part):
+    def arms_launched(label, part, want=None):
         launched(f"{label} synthesis", part["synthesis"]["launches"],
-                 names=("warp_labels_soft_hard",), rehearsal=rehearsal)
+                 {"warp_labels_soft_hard": 1}, rehearsal)
         for name, arm in part["arms"].items():
-            launched(f"{label} {name}", arm["launches"], rehearsal=rehearsal,
-                     names=SERVING + (("conv3_int8",) if name.endswith("int8") else ()))
+            launched(f"{label} {name}", arm["launches"],
+                     want or forward_launches(arm["config"]), rehearsal)
 
     print(f"# phase 12a: run_batch (--opt-affine, min_sc_dice {pq.MIN_SC_DICE}) in the arms "
           f"{pq.PIPELINE_ARMS} on {n_subjects} held-out subjects (maps seed "
@@ -3134,7 +3140,7 @@ def quality_phase(dev, rehearsal, tmp):
                              n_subjects=n_subjects)
     counts["12b"] = kernels.launch_counts()
     numbers["12b_s"] = time.perf_counter() - t0
-    arms_launched("12b", part_b)
+    arms_launched("12b", part_b, forward_launches(FLAGSHIP))
 
     for label, part in (("12a", part_a), ("12b", part_b)):
         numbers[label] = {
@@ -3205,6 +3211,7 @@ def train_bench_record(label, batch, width, rehearsal):
     import re
 
     from multimodal_registration_torch.tools import train_bench as tb
+    from multimodal_registration_torch.train.trainer import Trainer
 
     rc, stdout, stderr = train_bench_run(batch, width, rehearsal)
     for line in stderr.splitlines():
@@ -3229,9 +3236,9 @@ def train_bench_record(label, batch, width, rehearsal):
                "sec_per_step": rec["sec_per_step"], "final_loss": rec["final_loss"],
                "warmup_loss": warm, "blocks_s": blocks, "launches_per_step": per_step,
                "steps": n_steps, "peak_mib": float(peak.group(1)) if peak else None}
+    want = Trainer(tb.train_config(batch, width), device="cpu").step_launches()
     if not rehearsal:
-        check(per_step == tb.step_launches(batch),
-              f"13a {label}: a step launched {per_step}, want {tb.step_launches(batch)}")
+        check(per_step == want, f"13a {label}: a step launched {per_step}, want {want}")
         check(len(blocks) == 3 and peak is not None and numbers["peak_mib"] > 0,
               f"13a {label}: the stderr lacks its blocks or its peak memory")
         check(rec["final_loss"] <= warm + LOSS_FLAT,
@@ -3291,14 +3298,13 @@ def _finite(label, rows: dict, keys):
     check(not bad, f"{label}: rows not finite: {bad}")
 
 
-def measurement_phase(dev, shape, timer, rehearsal, bench_numbers):
+def measurement_phase(dev, shape, timer, rehearsal):
     """Phase 13: the training step's and the batch pipeline's measurement
     tools (``multimodal_registration_torch/tools/``). 13a ``train_bench``
     (flagship batch 1 and 2, w256 batch 1) in processes of their own, the
     w256 step's fixed batch and K4 at 256 channels against their plain
-    versions; 13b the attribution tools in this process; 13c the roofline
-    of the flagship and w256 forwards at 192^3 against phase 11's measured
-    forwards; 13d ``pipeline_throughput``. Returns the launch counts of
+    versions; 13b the attribution tools in this process; 13d
+    ``pipeline_throughput``. Returns the launch counts of
     13a (the bench processes'), 13b and 13d, the phase's numbers and K4's
     rows at 256 channels."""
     import glob
@@ -3307,7 +3313,7 @@ def measurement_phase(dev, shape, timer, rehearsal, bench_numbers):
 
     from multimodal_registration_torch import kernels
     from multimodal_registration_torch.tools import (
-        bwd_breakdown, fwd_breakdown, pipeline_throughput, roofline, synth_breakdown,
+        bwd_breakdown, fwd_breakdown, pipeline_throughput, synth_breakdown,
         train_breakdown, train_profile, train_sol)
     from multimodal_registration_torch.train.config import TrainConfig
     from multimodal_registration_torch.train.trainer import Trainer
@@ -3414,22 +3420,6 @@ def measurement_phase(dev, shape, timer, rehearsal, bench_numbers):
               f"13b: the {label} trace does not name K2, K4-K7: {found}")
     numbers["13b_s"] = time.perf_counter() - t0
 
-    # ---- 13c. the forward's roofline at 192^3 against phase 11's forwards
-    print("# phase 13c: tools/roofline.py at 192^3 against bench_torch.py's best forwards "
-          "(phase 11)", flush=True)
-    measured = {arch: ms for (arch, q, _), ms in zip(BENCH_SPECS, bench_numbers["11a"]["best_ms"])
-                if not q}
-    numbers["13c"] = {}
-    for arch, width in (("train64", 64), ("infer256", 256)):
-        r = roofline.roofline(BENCH_SHAPE, width)["total"]
-        ms = measured.get(arch)
-        share = r["sol_ms_flops"] / ms if ms else None
-        numbers["13c"][arch] = {**r, "measured_ms": ms, "forward_mfu": share}
-        print(f"#   13c {arch}: sol_ms_flops {r['sol_ms_flops']:.4f}, sol_ms_hbm "
-              f"{r['sol_ms_hbm']:.4f}, measured "
-              f"{'not measured' if ms is None else f'{ms:.4f} ms'}, forward_mfu "
-              f"{'not measured' if share is None else f'{share:.4f}'}", flush=True)
-
     # ---- 13d. pipeline_throughput
     t0 = time.perf_counter()
     n_subjects = 2 if rehearsal else 3
@@ -3440,7 +3430,7 @@ def measurement_phase(dev, shape, timer, rehearsal, bench_numbers):
     doc = pipeline_throughput.run(configs, n_subjects, quick=rehearsal, device=dev,
                                   emit=lambda text: None)
     counts["13d"] = kernels.launch_counts()
-    launched("13d", counts["13d"], rehearsal=rehearsal)
+    launched("13d", counts["13d"], forward_launches(FLAGSHIP), rehearsal)
     numbers["13d"] = doc
     for name, c in doc["configs"].items():
         print(f"#   13d {name}: ok {c['ok']}, {c['subjects_per_min']:.4f} subjects/min "
@@ -3559,8 +3549,9 @@ def studies_phase(dev, rehearsal, tmp):
             _, c, e = counted(lambda: fn(x), *tally)
             per_call[row] = {k: v for k, v in {**c, **e}.items() if v}
     print(f"#   14a launches per chain call: {json.dumps(per_call)}", flush=True)
-    want = {"unet_convs_ms": {"conv3_lrelu_pool": 1, "conv3_lrelu_pool_launch": 1,
-                              "up_cat": 3, "up_cat_launch": 3},
+    fwd = forward_launches(FLAGSHIP)  # ablate's U-Net is the flagship's: its K1 and K10
+    want = {"unet_convs_ms": {k: fwd[k] for k in ("conv3_lrelu_pool", "conv3_lrelu_pool_launch",
+                                                  "up_cat", "up_cat_launch")},
             "integrate5_halfres_ms": {"warp_trilinear": 5, "self_warp_add_launch": 5},
             "warp_fullres_ms": {"warp_trilinear": 1, "warp_launch": 1},
             "rescale_2x_ms": {}}
@@ -3727,11 +3718,6 @@ def studies_phase(dev, rehearsal, tmp):
 PHASE15_BUDGET_S = 150  # of the script's 1200 s
 PROBE_STEPS = 1000  # 15a: each arm, as 9a's one arm (the JAX probe's 3000 cut for time)
 PROBE_TINY = dict(in_shape=[16, 16, 16], num_labels=4)  # the CPU rehearsal
-# a flagship forward's launches (by kernel and by C entry): K1, K2's fused step x5, K3, K9,
-# K10 x3
-FWD_WANT = {"conv3_lrelu_pool": 1, "conv3_lrelu_pool_launch": 1, "warp_trilinear": 5,
-            "self_warp_add_launch": 5, "warp_up2x": 1, "warp_up2x_launch": 1,
-            "flow_head": 1, "flow_head_fwd_launch": 1, "up_cat": 3, "up_cat_launch": 3}
 # 15c: the batch of 2's warp against the single pair's on the probe's initial
 # weights (fields of 1e-4 voxel), in bf16 ulps of the field: twice the largest
 # reading, 1.973 ulp (PERF.md section 6); f2_rule says why its 1 ulp
@@ -3753,6 +3739,7 @@ def probes_phase(dev, rehearsal, fwd3):
 
     from multimodal_registration_torch import kernels
     from multimodal_registration_torch.entry import CFG as ENTRY_CFG, SHAPE as ENTRY_SHAPE, entry
+    from multimodal_registration_torch.models.vxm_dense import VxmDense
     from multimodal_registration_torch.models.weights import params_from_jax
     from multimodal_registration_torch.tools import (
         conv_probe as cp, pair_interleave_probe as pip, svf4_learn_probe as s4)
@@ -3860,15 +3847,16 @@ def probes_phase(dev, rehearsal, fwd3):
     # single pair's kernels and convs on the same shapes, so they equal it bit
     # for bit; the batch of 2 runs cuDNN at another batch size (see f2_rule)
     per_pair, agree = {}, {}
+    fwd_want = {k: v for k, v in model.kernel_launches().items() if v}
     with torch.inference_mode():
         want, field_max = singles()
         for name, fn in fns.items():
             out, c, e = counted(fn, *tally)
             n = 1 if name == "batch2_ms_per_pair" else len(out)
             per_pair[name] = {k: v / n for k, v in {**c, **e}.items() if v}
-            check(rehearsal or per_pair[name] == FWD_WANT,
+            check(rehearsal or per_pair[name] == fwd_want,
                   f"15c {name}: launches {per_pair[name]} per {'call' if n == 1 else 'pair'}, "
-                  f"want {FWD_WANT}")
+                  f"want {fwd_want}")
             if name == "single_pair_ms":
                 out = out + [want[1]]
             batch2 = name == "batch2_ms_per_pair"
@@ -3927,7 +3915,8 @@ def probes_phase(dev, rehearsal, fwd3):
     check(bool(torch.isfinite(moved).all() and torch.isfinite(warp).all()),
           "15d: fn's outputs are not finite")
     launched = {k: v for k, v in {**c, **e}.items() if v}
-    check(rehearsal or launched == FWD_WANT, f"15d: fn launched {launched}, want {FWD_WANT}")
+    want = VxmDense(ENTRY_CFG, device="meta").kernel_launches()
+    check(rehearsal or {**c, **e} == want, f"15d: fn launched {launched}, want {want}")
     fn_ms = ms_per_call(dev, lambda: fn(params, mov0, fx0), *((1, 1, 1) if rehearsal else (10, 2, 3)))
     mov_t, fx_t, out3 = fwd3
     with np.load(CKPT) as z:
@@ -4134,10 +4123,10 @@ def flow_head_phase(dev, timer, rehearsal, results, timing):
           f"loss-and-backward {counts['16_train']['flow_head']} "
           f"({ {k: v for k, v in train_entries.items() if k.startswith('flow_head')} })",
           flush=True)
+    want = model.kernel_launches()
     if not rehearsal:
-        check(counts["16_forward"]["flow_head"] == 1
-              and fwd_entries.get("flow_head_fwd_launch") == 1,
-              f"16: a flagship forward launched K9 {fwd_entries}, want the forward once")
+        check({**counts["16_forward"], **fwd_entries} == want,
+              f"16: a flagship forward launched {fwd_entries}, want {want}")
         check(all(train_entries.get(e) == 1 for e in FLOW_HEAD_ENTRIES)
               and counts["16_train"]["flow_head"] == 4,
               f"16: a loss-and-backward launched K9 {train_entries}, want each entry once")
@@ -4417,15 +4406,12 @@ def main() -> None:
     with torch.inference_mode():
         kernels.reset_launch_counts()
         out_k = model(mov_t, fx_t)
-        per_fwd = kernels.launch_counts()
+        per_fwd = {**kernels.launch_counts(), **kernels.entry_launch_counts()}
         out_p = model(mov_t, fx_t, impl="plain")
     print(f"#   launches per forward: {per_fwd}")
+    serving = model.kernel_launches()
     if not rehearsal:
-        want = dict.fromkeys(per_fwd, 0)
-        want.update({"conv3_lrelu_pool": 1, "warp_trilinear": 5, "warp_up2x": 1, "flow_head": 1,
-                     "up_cat": 3})
-        check(per_fwd == want,
-              f"forward launched {per_fwd}, want K1 x1, K2 x5, K3 x1, K9 x1, K10 x3 only")
+        check(per_fwd == serving, f"forward launched {per_fwd}, want {serving}")
     for k in ("moved", "warp"):
         check(bool(torch.isfinite(out_k[k]).all()), f"forward {k} not finite")
     check(tuple(out_k["moved"].shape) == (1, *shape, 1), "moved has the wrong shape")
@@ -4557,17 +4543,15 @@ def main() -> None:
         mse0 = float(np.mean((mov_np - fx_np) ** 2))
         mse1 = float(np.mean((out["moved"] - fx_np) ** 2))
         print(f"#   MSE to fixed: moving {mse0:.5f}, moved {mse1:.5f}")
-    serving = SERVING
     if not rehearsal:
-        check(all(launches[k] >= 1 for k in serving),
+        check(all(launches[k] >= 1 for k in launches if serving[k]),
               f"a kernel of the serving path was not launched by register(): {launches}")
 
     # ---- 5. training -----------------------------------------------------------
     print("# phase 5: training (run_training, flagship widths)", flush=True)
     with tempfile.TemporaryDirectory() as td:
         train_launches, train_numbers = training_phase(dev, shape, timer, rehearsal, td)
-    training = tuple(k.name for k in kernels.KERNELS
-                     if k.name not in serving + ("conv3_int8",)) + ("warp_trilinear",)
+    training = [k for k, v in train_numbers["step_launches"].items() if v]
     if not rehearsal:
         check(all(train_launches[k] >= 1 for k in training)
               and all(train_numbers["entries"].get(e, 0) >= 1 for e in DICE_ENTRIES.values()),
@@ -4628,8 +4612,7 @@ def main() -> None:
 
     # ---- 13. the training step's and the pipeline's measurement tools ----------------
     clear_scratch()
-    tools_launches, tools_numbers, k4_w256 = measurement_phase(dev, shape, timer, rehearsal,
-                                                               bench_numbers)
+    tools_launches, tools_numbers, k4_w256 = measurement_phase(dev, shape, timer, rehearsal)
     timing["max_pool_2x_bwd"]["w256"] = k4_w256
     print(f"#   phase 13 numbers: {json.dumps(tools_numbers)}")
 
@@ -4655,13 +4638,13 @@ def main() -> None:
 
     # ---- 18. report ----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
-    # before it: register() for K1-K3 and K10, run_training() for K4-K7, register()
-    # with the published config in int8 (7d) for K8
+    # before it: register() for a flagship forward's kernels (K1-K3, K9, K10),
+    # run_training() for K4-K7, register() with the published config in int8 (7d) for K8
     report = []
     for k in kernels.KERNELS:
         row = timing[k.name]
         main_path = (w256_launches["7d"] if k.name == "conv3_int8" else
-                     launches if k.name in serving else train_launches)
+                     launches if serving[k.name] else train_launches)
         report.append({
             "name": k.name, "route": "cuda",
             "source": f"multimodal_registration_torch/csrc/{k.source}",
@@ -4751,8 +4734,6 @@ def main() -> None:
           f"phase12_s {quality_numbers['total_s']:.1f} "
           + " ".join(f"train_bench_{label.replace(' ', '_')}_s_per_step {r['sec_per_step']:.6f}"
                      for label, r in tools_numbers['13a'].items())
-          + " " + " ".join(f"forward_mfu_{arch} {r['forward_mfu']}"
-                           for arch, r in tools_numbers['13c'].items())
           + " " + " ".join(f"pipeline_{name}_subjects_per_min {c['subjects_per_min']:.4f}"
                            for name, c in tools_numbers['13d']['configs'].items())
           + f" phase13_s {tools_numbers['total_s']:.1f} "

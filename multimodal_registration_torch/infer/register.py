@@ -378,8 +378,7 @@ def load_params_any(path: str, cfg: InferenceConfig) -> dict:
     if not path.endswith(".npz"):
         raise NotImplementedError(
             f"{path!r}: only .npz checkpoints load in the port; Orbax checkpoint "
-            "directories are not read (ROADMAP queue 1 item 9c): use the flat .npz "
-            "written beside them")
+            "directories are not read by the port: use the flat .npz written beside them")
     with np.load(path) as z:
         flat = dict(z)
     try:

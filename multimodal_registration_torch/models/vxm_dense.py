@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_registration_torch import kernels
 from multimodal_registration_torch.device import full_fp32_convs
 from multimodal_registration_torch.models.unet import Unet, _ncdhw, _ndhwc
 from multimodal_registration_torch.ops.field import smooth_field_batch
@@ -133,6 +134,24 @@ class VxmDense(nn.Module):
         """What calibration recorded so far, ``{key: numpy float32}``."""
         return {k: np.float32(b.recorded.item()) for k, b in self.quant_blocks().items()
                 if b.recorded is not None}
+
+    def kernel_launches(self, slabs: int = 1) -> dict:
+        """What one inference :meth:`forward` launches on the card, its U-Net
+        and head on ``slabs`` X slabs (``parallel/spatial.py``): by kernel,
+        every one of ``kernels.KERNELS``, and by C entry, those launched. K1
+        runs enc_0 when the decoder skips its full resolution."""
+        unet, steps = self.unet, self.cfg.int_steps
+        half = int(self.cfg.int_res == 2)
+        k1 = slabs * int(unet.nb_upsample_skips >= 1)
+        k8 = 0 if self.quant_calibrate else slabs * len(self.quant_blocks())
+        k10 = slabs * max(0, min(len(unet.dec_nf), len(unet.enc_nf) - unet.nb_upsample_skips))
+        counts = dict.fromkeys((k.name for k in kernels.KERNELS), 0)
+        counts.update(conv3_lrelu_pool=k1, warp_trilinear=steps + 1 - half, warp_up2x=half,
+                      conv3_int8=k8, flow_head=slabs, up_cat=k10)
+        entries = {"conv3_lrelu_pool_launch": k1, "self_warp_add_launch": steps,
+                   "warp_launch": 1 - half, "warp_up2x_launch": half, "conv3_int8_launch": k8,
+                   "flow_head_fwd_launch": slabs, "up_cat_launch": k10}
+        return {**counts, **{e: n for e, n in entries.items() if n}}
 
     def forward(self, moving: torch.Tensor, fixed: torch.Tensor, impl=None,
                 with_moved: bool = True, with_fullres: bool = True,

@@ -394,9 +394,8 @@ def warp_up2x_batch(vol: torch.Tensor, flow_half: torch.Tensor, impl=None) -> to
     else:
         if needs_grad(v5, flow_half):
             raise NotImplementedError(
-                "warp_up2x (kernel K3) has no backward yet (ROADMAP queue 2, K3's "
-                "backward): call it under torch.no_grad(), or use warp_batch on the "
-                "rescaled field where a gradient is needed")
+                "warp_up2x (kernel K3) has no backward: call it under torch.no_grad(), "
+                "or use warp_batch on the rescaled field where a gradient is needed")
         _check_payload(v5, "warp_up2x")
         v5 = v5.contiguous()
         fh = flow_half.float().contiguous()

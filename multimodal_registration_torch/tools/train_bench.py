@@ -19,7 +19,7 @@ Prints one line to stdout, ``{"metric":
 "unit": "steps/s", "sec_per_step", "final_loss"}``, the loss of the last step.
 Block times, peak memory and the kernel launches of each step go to stderr
 as ``#`` lines. On the card every step must launch the training kernels
-(:func:`step_launches`); a step that launched anything else fails the run.
+(:meth:`Trainer.step_launches`); a step that launched anything else fails the run.
 Runs on the card unless ``--device cpu``.
 """
 
@@ -38,22 +38,6 @@ from multimodal_registration_torch.train.config import TrainConfig
 from multimodal_registration_torch.train.trainer import Trainer
 
 SHAPE, NUM_LABELS, NUM_MAPS = (160, 160, 192), 26, 4
-
-
-def step_launches(batch: int) -> dict:
-    """Kernel launches of one training step at ``batch`` on one device: K2
-    x11 (the generators' integration and the model's, 5 each, batched, and
-    the compose), K4 x4 (the encoder's pools), K5 x6 (their backward), K6 x
-    2 a sample (the two syntheses' label warps) + 1 (the loss's Dice sums,
-    K6's Dice entry, batched: the warped map is not formed), K7 x1 (the
-    loss's flow gradient, K7's Dice entry, its cotangent formed in the
-    kernel), K9 x4 (the flow head's forward, input gradient, and weight
-    gradient in two passes). No K10: under grad the decoder's upsample and
-    concatenation are autograd's."""
-    want = dict.fromkeys(kernels.launch_counts(), 0)
-    want.update(warp_trilinear=11, max_pool_2x_bwd=4, warp_trilinear_bwd=6,
-                warp_labels_soft_hard=2 * batch + 1, warp_labels_bwd=1, flow_head=4, up_cat=0)
-    return want
 
 
 def metric_name(batch: int, width: int, shape=SHAPE) -> str:
@@ -91,7 +75,7 @@ def run(iters: int = 6, batch: int = 1, width: int = 0, blocks: int = 1, device=
     shape = tuple(shape or SHAPE)
     cfg = train_config(batch, width, shape, num_labels or NUM_LABELS)
     trainer, bank, si, ti, gen = setup(cfg, dev)
-    want = step_launches(batch)
+    want = trainer.step_launches()
     aux = {}
 
     def step():

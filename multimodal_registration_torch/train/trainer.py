@@ -23,12 +23,9 @@ by its share of the batch; the gradients are summed onto the first device in
 replica order, clipped and applied there, and the parameters copied back to
 the other devices before the next step.
 
-Kernels on this path, per step at batch B on one device: K2 x11 (5 for the
-generators' integration, 5 for the model's, 1 compose, each batched), K5 x6
-(their backward; the generators' need none), K6 x2B+1 (two synthesis warps a
-sample, and the loss's Dice sums through K6's Dice entry), K7 x1 (the Dice
-loss's flow gradient through K7's Dice entry), K4 x4 (the pools of enc_0..enc_3). K1 and K3 are inference kernels: enc_0
-runs unfused and ``moved`` is not computed.
+The kernels a step launches are :meth:`Trainer.step_launches`. K1, K3 and K10
+are inference kernels: enc_0 runs unfused, ``moved`` is not computed and the
+decoder's upsample is autograd's.
 
 Differences from the JAX trainer: checkpoints are the flat ``.npz``
 (either package loads the other's) plus a ``torch.save`` of the optimizer
@@ -45,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from multimodal_registration_torch import kernels
 from multimodal_registration_torch.device import full_fp32_convs
 from multimodal_registration_torch.losses import grad_loss
 from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
@@ -417,6 +415,23 @@ class Trainer:
     def val_step_banked(self, gen, bank, src_idx, trg_idx) -> dict:
         return self.val_step(gen, bank[src_idx], bank[trg_idx])
 
+    def step_launches(self) -> dict:
+        """What one :meth:`train_step` launches on the card, by kernel, summed
+        over the replicas that share the batch (:meth:`shares`): a replica's
+        synthesis (K2, K6 two a sample), loss (K2, K6, K7), backward (K4, K5)
+        and head (K9: forward, input gradient, weight gradient in two)."""
+        cfg, eng = self.cfg, self.engine_cfg
+        rows = len(self.replicas) if cfg.batch_size % len(self.replicas) == 0 else 1
+        b = cfg.batch_size // rows
+        synth = eng.vel_std > 0
+        gens = synth * eng.int_steps * (1 if reduced_svf_grid(tuple(cfg.in_shape), eng) else 2 * b)
+        steps = self.vxm_cfg.int_steps
+        per = dict.fromkeys((k.name for k in kernels.KERNELS), 0)
+        per.update(warp_trilinear=gens + steps + 1, max_pool_2x_bwd=len(self.vxm_cfg.enc),
+                   warp_trilinear_bwd=steps + 1, warp_labels_soft_hard=2 * b * synth + 1,
+                   warp_labels_bwd=1, flow_head=4)
+        return {k: rows * n for k, n in per.items()}
+
     # -- checkpoints ---------------------------------------------------------
     def save_checkpoint(self, path: str, epoch: int = 0) -> None:
         """``path + '.npz'``: the weights in the JAX package's flat key
@@ -442,8 +457,8 @@ class Trainer:
         if not os.path.exists(stem + ".npz"):
             if os.path.isdir(path):
                 raise NotImplementedError(
-                    "Orbax checkpoint directories are not read by the port (ROADMAP "
-                    "queue 1 item 9c): use the flat .npz written beside them")
+                    "Orbax checkpoint directories are not read by the port: use the "
+                    "flat .npz written beside them")
             raise FileNotFoundError(stem + ".npz")
         with np.load(stem + ".npz") as z:
             state = params_from_jax(dict(z), self.vxm_cfg)

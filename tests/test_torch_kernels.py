@@ -701,6 +701,55 @@ def test_tile_batches_through_the_kernels(cuda_device):
     assert float((kw - pw).abs().max()) <= 0.1 and float((km - pm).abs().max()) <= 0.05
 
 
+# ---- what a forward and a training step state of their launches -----------
+
+LAUNCH_FORWARDS = {"bf16": ({}, 1), "int8": ({"quantize": "int8"}, 1),
+                   "int_res1": ({"int_res": 1}, 1), "slabs2": ({}, 2),
+                   "int8_slabs2": ({"quantize": "int8"}, 2)}
+
+
+@pytest.mark.parametrize("case", sorted(LAUNCH_FORWARDS))
+def test_a_forward_launches_what_the_model_states(cuda_device, case):
+    """A counted forward, by kernel and by C entry, against
+    ``VxmDense.kernel_launches``: width 64 (the int8 convs take 64 input
+    channels or more) at 64x32x48, on two X slabs through
+    ``parallel/spatial.py``."""
+    from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
+    from multimodal_registration_torch.parallel.spatial import forward_slabs
+
+    over, slabs = LAUNCH_FORWARDS[case]
+    model = VxmDense(VxmConfig(enc=(64,) * 4, dec=(64,) * 6, **over), device=cuda_device).eval()
+    model.set_quant_scales({k: 4.0 for k in model.quant_blocks()})
+    mov, fx = (torch.rand((1, 64, 32, 48, 1), device=cuda_device) for _ in range(2))
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        if slabs == 1:
+            model(mov, fx)
+        else:
+            forward_slabs({cuda_device: model}, [cuda_device] * slabs, mov, fx)
+    got = {**kernels.launch_counts(), **kernels.entry_launch_counts()}
+    assert got == model.kernel_launches(slabs)
+
+
+@pytest.mark.parametrize("batch, replicas", [(1, 1), (2, 1), (2, 2)])
+def test_a_training_step_launches_what_the_trainer_states(cuda_device, batch, replicas):
+    """A counted training step against ``Trainer.step_launches`` at 32^3, 4
+    labels, on one device and on two replicas of it."""
+    from multimodal_registration_torch.parallel.mesh import make_mesh
+    from multimodal_registration_torch.train.config import TrainConfig
+    from multimodal_registration_torch.train.trainer import Trainer
+
+    cfg = TrainConfig.from_dict(dict(
+        in_shape=[32, 32, 32], num_labels=4, im_scales=[4, 8], def_scales=[4], vel_res=4.0,
+        bias_res=8.0, batch_size=batch, enc=[16] * 4, dec=[16] * 6))
+    trainer = Trainer(cfg, mesh=make_mesh(replicas, devices=[cuda_device] * replicas))
+    maps = (rand((batch, 32, 32, 32), 94, low=0, high=4)).astype("uint8")
+    src, trg = trainer.put_batch(maps, maps[::-1].copy())
+    kernels.reset_launch_counts()
+    trainer.train_step(trainer.generator(5), src, trg)
+    assert kernels.launch_counts() == trainer.step_launches()
+
+
 @pytest.mark.parametrize("kind", ["separable", "oblique"])
 @pytest.mark.parametrize("mode", ["constant", "nearest"])
 def test_device_spline_on_the_card(cuda_device, kind, mode):

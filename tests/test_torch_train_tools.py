@@ -41,6 +41,7 @@ import torch
 from multimodal_registration_torch.tools import (
     bwd_breakdown, fwd_breakdown, roofline, synth_breakdown, train_bench, train_breakdown,
     train_profile, train_sol)
+from multimodal_registration_torch.train.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(ROOT, "benchmarks")
@@ -205,8 +206,9 @@ def test_train_bench_flags_and_line_equal_the_jax_scripts():
     assert {k: getattr(cfg, k) for k in want} == want == dict(
         in_shape=[160, 160, 192], num_labels=26, zero_borders_maps=True, epochs=1)
     assert cfg.enc == [64] * 4 and train_bench.train_config(1, 256).dec == [256] * 6
-    assert train_bench.step_launches(1)["warp_labels_soft_hard"] == 3
-    assert train_bench.step_launches(2)["warp_labels_soft_hard"] == 5
+    for batch, k6 in ((1, 3), (2, 5)):
+        trainer = Trainer(train_bench.train_config(batch), device="cpu")
+        assert trainer.step_launches()["warp_labels_soft_hard"] == k6
 
 
 def test_train_bench_final_loss_equals_direct_steps(capsys):
