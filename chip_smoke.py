@@ -22,7 +22,7 @@ Phases (any failure exits non-zero):
   3. the flagship forward (VxmDense enc [64]x4 / dec [64]x6, int_steps 5,
      svf_res = int_res = 2, bf16) on the in-repo checkpoint at
      (1, 160, 160, 192, 1): kernel path against the plain path, launch
-     counts per forward (K10 x3 among them), ms per forward, pairs/s, peak memory, and each
+     counts per forward (K10 x3, K11 x9 among them), ms per forward, pairs/s, peak memory, and each
      kernel's wrapper time, device time and device operations per call
      beside its bound, its plain version and a PyTorch yardstick that the
      port never calls;
@@ -114,8 +114,8 @@ Phases (any failure exits non-zero):
      11a. ``bench_torch.py`` with its default flags, in a process of its own:
           exit code 0 and exactly three JSON lines on stdout, infer256 bf16,
           infer256 int8, train64 (``bench.py``'s metric names, keys and
-          order), each value > 0; its launches (K1 x1, K2 x5, K3 x1, K10 x3
-          a forward, K8 x9 in int8); then the kernels at its 192^3 shapes and
+          order), each value > 0; its launches (K1 x1, K2 x5, K3 x1, K10 x3,
+          K11 x9 a forward, K8 x9 and K11 x0 in int8); then the kernels at its 192^3 shapes and
           its three models through them, against their plain versions;
      11b. the w256 checkpoint in int8 (lazily calibrated on the first pair)
           against bf16 on three held-out pairs at 160x160x192, 26 labels
@@ -158,7 +158,7 @@ Phases (any failure exits non-zero):
      (``multimodal_registration_torch/tools/``), budget 180 s (held on the
      card), ``benchmarks/`` hashed before and after, nothing caught:
      14a. ``ablate`` at 192^3: four positive rows; launches per chain call:
-          K1 x1 and K10 x3 (the U-Net, no gradient), K2's fused step x5 (integrate), K2
+          K1 x1, K10 x3, K11 x9 (the U-Net, no gradient), K2's fused step x5 (integrate), K2
           x1 (warp), none (rescale);
      14b. ``unet_bwd_probe 6`` at 160x160x192: five sections, each with
           finite positive ``_fwd_ms`` and ``_fwd_bwd_ms`` and no ``_error``;
@@ -198,11 +198,11 @@ Phases (any failure exits non-zero):
           against ``model(...)`` at 64^3), then on the in-repo ``learned_ref``
           weights each two-pair arm's ``moved`` and ``warp`` against the
           single pair's (the F2 rule; bit for bit printed), K1 x1, K2's fused
-          step x5, K3 x1, K10 x3 a pair (a call for the batch of 2); the probe's rows
+          step x5, K3 x1, K10 x3, K11 x9 a pair (a call for the batch of 2); the probe's rows
           (its own initial weights) every one > 0; the two-stream speedup
           printed, not held;
      15d. ``entry()``: ``fn(*example_args)`` gives (1, 160, 160, 192, 1) and
-          (1, 80, 80, 96, 3), finite, through K1 x1, K2 x5, K3 x1, K10 x3; with the
+          (1, 80, 80, 96, 3), finite, through K1 x1, K2 x5, K3 x1, K10 x3, K11 x9; with the
           in-repo ``learned_ref`` weights in ``params``, ``fn`` on phase 3's
           pair equals phase 3's forward bit for bit;
  16. K9, the flow head's float32 conv C -> 3 (forward, input gradient, weight
@@ -220,7 +220,13 @@ Phases (any failure exits non-zero):
      channels, bf16): each launch equal to its plain version bit for bit; a
      pair's three launches timed beside their byte bound, the plain version
      and ``F.interpolate`` + ``torch.cat``, the composition K10 replaced;
- 18. the report, and the card's name and power limit.
+ 18. K11, the library convs' bias and LeakyReLU in place, at each library
+     conv's output shape of a flagship and of a w256 forward (64 and 256
+     channels, bf16 and float32): each launch equal bit for bit to its plain
+     version and to the library's ``add_`` + ``F.leaky_relu`` it replaced;
+     each bf16 level timed beside its byte bound, the plain version and that
+     composition, and a pair's nine launches summed;
+ 19. the report, and the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only on
 the card and only when every phase passed. Imports nothing of JAX.
 """
@@ -2479,7 +2485,8 @@ def multi_gpu_phase(dev, timer, rehearsal, fx_np, mov_np, tmp):
     print(f"#   10a: launches per sharded forward {seen}")
     expect = single.model.kernel_launches(slabs=2)
     if not rehearsal:
-        check(seen == expect, f"10a: launched {seen}, want {expect} (K1, K9, K10 x3 a slab)")
+        check(seen == expect,
+              f"10a: launched {seen}, want {expect} (K1, K9, K10 x3, K11 x9 a slab)")
     field_max = float(want["warp"].abs().max())
     numbers["10a"] = f2_rule("10a", got, want, field_max)
     numbers["10a"]["max_abs_warp"] = field_max
@@ -3549,15 +3556,16 @@ def studies_phase(dev, rehearsal, tmp):
             _, c, e = counted(lambda: fn(x), *tally)
             per_call[row] = {k: v for k, v in {**c, **e}.items() if v}
     print(f"#   14a launches per chain call: {json.dumps(per_call)}", flush=True)
-    fwd = forward_launches(FLAGSHIP)  # ablate's U-Net is the flagship's: its K1 and K10
+    fwd = forward_launches(FLAGSHIP)  # ablate's U-Net is the flagship's: its K1, K10, K11
     want = {"unet_convs_ms": {k: fwd[k] for k in ("conv3_lrelu_pool", "conv3_lrelu_pool_launch",
-                                                  "up_cat", "up_cat_launch")},
+                                                  "up_cat", "up_cat_launch", "bias_lrelu",
+                                                  "bias_lrelu_launch")},
             "integrate5_halfres_ms": {"warp_trilinear": 5, "self_warp_add_launch": 5},
             "warp_fullres_ms": {"warp_trilinear": 1, "warp_launch": 1},
             "rescale_2x_ms": {}}
     check(rehearsal or per_call == want,
-          f"14a: launches per chain call {per_call}, want K1 x1, K10 x3 (U-Net), K2's fused "
-          "step x5 (integrate), K2 x1 (warp), none (rescale)")
+          f"14a: launches per chain call {per_call}, want K1 x1, K10 x3, K11 x9 (U-Net), "
+          "K2's fused step x5 (integrate), K2 x1 (warp), none (rescale)")
     numbers["14a"] = {"rows": res, "launches_per_call": per_call,
                       "s": time.perf_counter() - t0}
 
@@ -4254,6 +4262,132 @@ def up_cat_phase(dev, timer, rehearsal, results, timing):
     return numbers
 
 
+PHASE18_BUDGET_S = 90  # of the script's 1200 s
+# the output levels of a 160x160x192 forward's nine library convs, nb_upsample_skips 1:
+# enc_1, dec_3, final_0, final_1 at half resolution, two convs at each coarser level
+# but the coarsest (dec_0)
+BIAS_LRELU_LEVELS = (((1, 80, 80, 96), 4), ((1, 40, 40, 48), 2), ((1, 20, 20, 24), 2),
+                     ((1, 10, 10, 12), 1))
+
+
+def bias_lrelu_phase(dev, timer, rehearsal, results, timing):
+    """Phase 18: K11, the library convs' bias and LeakyReLU in place
+    (``ops/bias_lrelu.py``), at each library conv's output shape of a flagship
+    and of a w256 forward (:data:`BIAS_LRELU_LEVELS`, 64 and 256 channels,
+    channels-last), in bf16 and in float32: equal bit for bit to its plain
+    version and to the library's broadcast ``add_`` of the bias cast to the
+    compute type and ``F.leaky_relu``, which the U-Net ran before K11. Then,
+    in bf16, each level's launch timed (ms; device ms and operations) beside
+    its bound (the output read once and written once at 3.35 TB/s), the plain
+    version (``impl="plain"``) and the library's composition (the yardstick),
+    and the nine launches of a pair summed from the levels. Returns its
+    numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_registration_torch import kernels
+    from multimodal_registration_torch.ops.bias_lrelu import bias_lrelu_, bias_lrelu_plain
+
+    t_phase = time.perf_counter()
+    numbers = {"shapes": {}}
+    print("# phase 18: K11, the library convs' bias and LeakyReLU in place", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def output(level, C, dtype):  # a conv's output as cuDNN returns it, channels-last
+        return torch.randn((*level, C), generator=gen, device=dev).to(dtype).permute(
+            0, 4, 1, 2, 3)
+
+    def library(y, b):  # what the U-Net ran before K11
+        return F.leaky_relu(y.add_(b.to(y.dtype).view(1, -1, 1, 1, 1)), 0.2)
+
+    def inference(fn):
+        def call():
+            with torch.inference_mode():
+                return fn()
+        return call
+
+    levels = [((1, *(max(2, s // 10) for s in level[1:])), n) if rehearsal else (level, n)
+              for level, n in BIAS_LRELU_LEVELS]
+    exact = []
+    for label, C in (("flagship", 64), ("w256", 256)):
+        b = 0.5 * torch.randn(C, generator=gen, device=dev)
+        row = {"levels": []}
+        for dtype in (torch.bfloat16, torch.float32):
+            for level, _ in levels:
+                y = output(level, C, dtype)
+                want = library(y.clone(), b)
+                with torch.inference_mode():
+                    kernels.reset_launch_counts()
+                    got = bias_lrelu_(y.clone(), b, 0.2)
+                    launched = kernels.BIAS_LRELU.launches
+                    plain = bias_lrelu_plain(y.clone(), b, 0.2)
+                same = bool(torch.equal(got, want) and torch.equal(got, plain))
+                exact.append(same)
+                print(f"#   18 {label} {str(dtype)[6:]} {list(y.shape)}: equal to the library's "
+                      f"add + LeakyReLU and to the plain version bit for bit: {same}; "
+                      f"launches {launched}", flush=True)
+                check(same, f"18 {label} {list(y.shape)} {dtype}: K11 disagrees")
+                check(rehearsal or launched == 1,
+                      f"18 {label} {list(y.shape)}: launched K11 {launched} times")
+                del y, want, got, plain
+        n = 3 if rehearsal else 20
+        for level, count in levels:
+            y = output(level, C, torch.bfloat16)
+            nbytes = 2 * y.nbytes
+            lvl = {"shape": list(y.shape), "convs": count, "bytes": nbytes,
+                   "bound": bound(nbytes, 0, BF16_TENSOR_FLOPS)}
+            lvl["ms"] = timer(inference(lambda: bias_lrelu_(y, b, 0.2)), n=n)
+            lvl["plain_ms"] = timer(inference(lambda: bias_lrelu_(y, b, 0.2, impl="plain")),
+                                    n=max(1, n // 10), reps=3)
+            lvl["library_ms"] = timer(inference(lambda: library(y, b)), n=n)
+            lvl["device_ms"], lvl["device_ops"], _ = device_time(
+                inference(lambda: bias_lrelu_(y, b, 0.2)))
+            lvl["library_device_ms"], lvl["library_device_ops"], _ = device_time(
+                inference(lambda: library(y, b)))
+            dev_ms = lvl["device_ms"]
+            share = ("not measured" if dev_ms is None
+                     else f"{100 * lvl['bound'][0] / dev_ms:.1f}%")
+            print(f"#   18 {label} bf16 {lvl['shape']}: {lvl['ms']:.4f} ms, device "
+                  f"{ms_or_none(dev_ms)} in {lvl['device_ops']} operations, bound "
+                  f"{lvl['bound'][0]:.4f} ms ({nbytes / 1e6:.1f} MB; device time at {share} of "
+                  f"it), plain {lvl['plain_ms']:.4f} ms, yardstick {lvl['library_ms']:.4f} ms "
+                  f"({ms_or_none(lvl['library_device_ms'])} device in "
+                  f"{lvl['library_device_ops']} operations)", flush=True)
+            row["levels"].append(lvl)
+            del y
+        top = row["levels"][0]  # 80x80x96: the kernels line's row
+        row.update({k: top[k] for k in ("ms", "plain_ms", "library_ms", "device_ms",
+                                        "device_ops", "library_device_ms", "bound")})
+        row["shape"] = top["shape"]
+        for key in ("device_ms", "library_device_ms", "ms", "library_ms"):
+            vals = [lvl[key] for lvl in row["levels"]]
+            row[f"pair_{key}"] = (None if None in vals else
+                                  sum(v * lvl["convs"] for v, lvl in zip(vals, row["levels"])))
+        row["pair_bound_ms"] = sum(lvl["bound"][0] * lvl["convs"] for lvl in row["levels"])
+        print(f"#   18 {label} a pair's nine launches: device {ms_or_none(row['pair_device_ms'])}, "
+              f"bound {row['pair_bound_ms']:.4f} ms, yardstick "
+              f"{ms_or_none(row['pair_library_device_ms'])} device", flush=True)
+        numbers["shapes"][label] = row
+    top = numbers["shapes"]["w256"]
+    timing["bias_lrelu"] = dict(top, shapes={
+        label: {k: r[k] for k in ("shape", "ms", "device_ms", "device_ops", "plain_ms",
+                                  "library_ms", "library_device_ms", "pair_device_ms",
+                                  "pair_library_device_ms", "pair_ms", "pair_library_ms",
+                                  "pair_bound_ms")}
+        | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+           "levels": [{k: v for k, v in lvl.items() if k != "bound"} | {"bound_ms": lvl["bound"][0]}
+                      for lvl in r["levels"]]}
+        for label, r in numbers["shapes"].items()})
+    results["bias_lrelu"]["max_abs_err"] = 0.0  # every launch above was equal, bit for bit
+    numbers["exact"] = all(exact)
+    numbers["total_s"] = time.perf_counter() - t_phase
+    print(f"#   phase 18: {numbers['total_s']:.1f} s of its budget of {PHASE18_BUDGET_S} s",
+          flush=True)
+    check(rehearsal or numbers["total_s"] <= PHASE18_BUDGET_S,
+          f"phase 18 took {numbers['total_s']:.1f} s, over its budget of {PHASE18_BUDGET_S} s")
+    return numbers
+
+
 def ms_or_none(v):
     return "not measured" if v is None else f"{v:.4f} ms"
 
@@ -4636,9 +4770,13 @@ def main() -> None:
     clear_scratch()
     up_numbers = up_cat_phase(dev, timer, rehearsal, results, timing)
 
-    # ---- 18. report ----------------------------------------------------------
+    # ---- 18. the library convs' bias and LeakyReLU (K11) --------------------------
+    clear_scratch()
+    bias_numbers = bias_lrelu_phase(dev, timer, rehearsal, results, timing)
+
+    # ---- 19. report ----------------------------------------------------------
     # launches: of the main path that runs the kernel, counted from zero just
-    # before it: register() for a flagship forward's kernels (K1-K3, K9, K10),
+    # before it: register() for a flagship forward's kernels (K1-K3, K9-K11),
     # run_training() for K4-K7, register() with the published config in int8 (7d) for K8
     report = []
     for k in kernels.KERNELS:
@@ -4671,7 +4809,7 @@ def main() -> None:
         if "bound_needed" in row:  # K7: bound_ms counts sectors moved, this one entries needed
             report[-1].update({"bound_needed_ms": row["bound_needed"][0],
                                "bound_needed_by": row["bound_needed"][1]})
-        if "shapes" in row:  # K8: every int8 conv shape of the w256 forward; K9, K10: 16's, 17's
+        if "shapes" in row:  # K8: every int8 conv shape of the w256 forward; K9-K11: 16-18's
             report[-1]["shapes"] = row["shapes"]
         if "w256" in row:  # K4: the pools of the w256 training step, 256 channels (13a)
             report[-1]["w256"] = row["w256"]
@@ -4757,7 +4895,11 @@ def main() -> None:
           + f" phase16_s {head_numbers['total_s']:.1f} "
           + " ".join(f"up_cat_{label}_device_ms {r['device_ms']}"
                      for label, r in up_numbers["shapes"].items())
-          + f" phase17_s {up_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
+          + f" phase17_s {up_numbers['total_s']:.1f} "
+          + " ".join(f"bias_lrelu_{label}_device_ms {r['device_ms']} "
+                     f"bias_lrelu_{label}_pair_device_ms {r['pair_device_ms']}"
+                     for label, r in bias_numbers["shapes"].items())
+          + f" phase18_s {bias_numbers['total_s']:.1f} total_s {time.time() - t_start:.1f}")
     if rehearsal:
         print("# rehearsal on the CPU: every number above is a CPU number, not a device metric")
         return

@@ -248,8 +248,15 @@ UP_CAT = Kernel(
     [_P, _P, _P, *[_I] * 7, _P],
     "none: multimodal_registration_tpu/models/unet.py:272 is XLA's repeat and concatenate",
 )
+BIAS_LRELU = Kernel(
+    "bias_lrelu", "bias_lrelu.cu", "bias_lrelu_launch",
+    # y, bias, B, C, S, ncdhw, access bytes, slope, is_bf16, stream
+    [_P, _P, _I, _I, _L, _I, _I, _F, _I, _P],
+    "none: multimodal_registration_tpu/models/unet.py:171 is nn.Conv and leaky_relu in XLA",
+)
 KERNELS = (CONV3_LRELU_POOL, WARP_TRILINEAR, WARP_UP2X, MAX_POOL_2X_BWD,
-           WARP_TRILINEAR_BWD, WARP_LABELS, WARP_LABELS_BWD, CONV3_INT8, FLOW_HEAD, UP_CAT)
+           WARP_TRILINEAR_BWD, WARP_LABELS, WARP_LABELS_BWD, CONV3_INT8, FLOW_HEAD, UP_CAT,
+           BIAS_LRELU)
 
 
 def launch_counts() -> dict:

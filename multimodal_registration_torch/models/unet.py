@@ -21,8 +21,13 @@ which writes only the pooled tensor. K1 has no backward: whenever a gradient
 is needed (grad mode on and a parameter or the input requires one) enc_0 is
 the unfused conv + ``max_pool_2x``, as in the JAX trainer. The other convs
 are ``F.conv3d`` (cuDNN), as the JAX package leaves them to XLA; in float32
-they run in full float32, not cuDNN's default TF32. ``pool_tie`` is the tie
-rule of the pools' backward (``ops/pool.py``).
+they run in full float32, not cuDNN's default TF32. On the card without grad
+such a conv runs without its bias, and kernel K11 (``ops/bias_lrelu.py``)
+adds the bias and applies the LeakyReLU in place, in one pass over its
+output, with the bits of the library's add and LeakyReLU; under grad, on the
+CPU or with ``impl="plain"`` the conv takes its bias and ``F.leaky_relu``
+follows. ``pool_tie`` is the tie rule of the pools' backward
+(``ops/pool.py``).
 
 int8 inference (``quant="int8"``): a block whose input has at least
 ``quant_min_cin`` (64) channels runs the int8 conv, kernel K8
@@ -41,11 +46,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_registration_torch.device import full_fp32_convs
+from multimodal_registration_torch.ops.bias_lrelu import DTYPES as BIAS_LRELU_DTYPES, bias_lrelu_
 from multimodal_registration_torch.ops.conv_int8 import conv3_int8
 from multimodal_registration_torch.ops.conv_pool import conv3_lrelu_pool
 from multimodal_registration_torch.ops.pool import max_pool_2x
 from multimodal_registration_torch.ops.up_cat import upsample_cat
-from multimodal_registration_torch.ops.warp import needs_grad
+from multimodal_registration_torch.ops.warp import needs_grad, use_kernel
 
 
 def _ncdhw(x):
@@ -83,12 +89,24 @@ class ConvBlock(nn.Module):
                     "with a 'quant' collection (models/quantize.py::calibrate_scales)")
             return conv3_int8(x.to(self.dtype), self.conv.weight, self.conv.bias, self.amax,
                               0.2, impl=impl)
+        x = x.to(self.dtype)
         w = self.conv.weight.to(self.dtype)
-        b = self.conv.bias.to(self.dtype)
+        fused = self.fuses_bias_lrelu(x, impl)
+        b = None if fused else self.conv.bias.to(self.dtype)
         # in float32, cuDNN would otherwise run the conv in TF32 (fault F5)
         with full_fp32_convs() if self.dtype == torch.float32 else contextlib.nullcontext():
-            y = F.conv3d(_ncdhw(x.to(self.dtype)), w, b, padding=1)
+            y = F.conv3d(_ncdhw(x), w, b, padding=1)
+        if fused:
+            return _ndhwc(bias_lrelu_(y, self.conv.bias.float(), 0.2))
         return _ndhwc(F.leaky_relu(y, 0.2))
+
+    def fuses_bias_lrelu(self, x, impl=None) -> bool:
+        """Whether the library conv's bias and LeakyReLU run as K11, in place on
+        its output: on the card, in bf16 or float32, when no gradient is
+        recorded (K11 has no backward)."""
+        return (self.dtype in BIAS_LRELU_DTYPES
+                and not needs_grad(x, self.conv.weight, self.conv.bias)
+                and use_kernel(x, impl))
 
     def forward_pooled(self, x, impl=None):
         """``max_pool_2x(forward(x))`` through kernel K1, never writing the

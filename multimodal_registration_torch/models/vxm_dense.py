@@ -35,6 +35,7 @@ from torch import nn
 from multimodal_registration_torch import kernels
 from multimodal_registration_torch.device import full_fp32_convs
 from multimodal_registration_torch.models.unet import Unet, _ncdhw, _ndhwc
+from multimodal_registration_torch.ops.bias_lrelu import DTYPES as BIAS_LRELU_DTYPES
 from multimodal_registration_torch.ops.field import smooth_field_batch
 from multimodal_registration_torch.ops.flow_head import flow_head_conv
 from multimodal_registration_torch.ops.integrate import integrate_svf_batch
@@ -139,18 +140,25 @@ class VxmDense(nn.Module):
         """What one inference :meth:`forward` launches on the card, its U-Net
         and head on ``slabs`` X slabs (``parallel/spatial.py``): by kernel,
         every one of ``kernels.KERNELS``, and by C entry, those launched. K1
-        runs enc_0 when the decoder skips its full resolution."""
+        runs enc_0 when the decoder skips its full resolution; K8 each
+        quantizable conv out of calibration; K11 each other conv, the library's
+        (in bf16 or float32)."""
         unet, steps = self.unet, self.cfg.int_steps
         half = int(self.cfg.int_res == 2)
-        k1 = slabs * int(unet.nb_upsample_skips >= 1)
-        k8 = 0 if self.quant_calibrate else slabs * len(self.quant_blocks())
+        fused_first = unet.nb_upsample_skips >= 1
+        int8 = not self.quant_calibrate
+        k1 = slabs * int(fused_first)
+        k8 = slabs * int8 * len(self.quant_blocks())
         k10 = slabs * max(0, min(len(unet.dec_nf), len(unet.enc_nf) - unet.nb_upsample_skips))
+        library = [name for name, block in unet.named_children()
+                   if not (name == "enc_0" and fused_first or block.quantizable and int8)]
+        k11 = slabs * len(library) * int(unet.dtype in BIAS_LRELU_DTYPES)
         counts = dict.fromkeys((k.name for k in kernels.KERNELS), 0)
         counts.update(conv3_lrelu_pool=k1, warp_trilinear=steps + 1 - half, warp_up2x=half,
-                      conv3_int8=k8, flow_head=slabs, up_cat=k10)
+                      conv3_int8=k8, flow_head=slabs, up_cat=k10, bias_lrelu=k11)
         entries = {"conv3_lrelu_pool_launch": k1, "self_warp_add_launch": steps,
                    "warp_launch": 1 - half, "warp_up2x_launch": half, "conv3_int8_launch": k8,
-                   "flow_head_fwd_launch": slabs, "up_cat_launch": k10}
+                   "flow_head_fwd_launch": slabs, "up_cat_launch": k10, "bias_lrelu_launch": k11}
         return {**counts, **{e: n for e, n in entries.items() if n}}
 
     def forward(self, moving: torch.Tensor, fixed: torch.Tensor, impl=None,

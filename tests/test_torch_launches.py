@@ -18,11 +18,14 @@ from multimodal_registration_torch.train.trainer import Trainer
 
 W256 = dict(enc=(256,) * 4, dec=(256,) * 6)
 FLAGSHIP_FWD = dict(conv3_lrelu_pool=1, warp_trilinear=5, warp_up2x=1, flow_head=1, up_cat=3,
-                    conv3_lrelu_pool_launch=1, self_warp_add_launch=5, warp_up2x_launch=1,
-                    flow_head_fwd_launch=1, up_cat_launch=3)
-INT8 = dict(conv3_int8=9, conv3_int8_launch=9)
+                    bias_lrelu=9, conv3_lrelu_pool_launch=1, self_warp_add_launch=5,
+                    warp_up2x_launch=1, flow_head_fwd_launch=1, up_cat_launch=3,
+                    bias_lrelu_launch=9)
+# the nine library convs on K8, so none on K11
+INT8 = dict(conv3_int8=9, conv3_int8_launch=9, bias_lrelu=0, bias_lrelu_launch=0)
 SLABS2_FWD = dict(FLAGSHIP_FWD, conv3_lrelu_pool=2, conv3_lrelu_pool_launch=2, flow_head=2,
-                  flow_head_fwd_launch=2, up_cat=6, up_cat_launch=6)
+                  flow_head_fwd_launch=2, up_cat=6, up_cat_launch=6, bias_lrelu=18,
+                  bias_lrelu_launch=18)
 TRAIN_B1 = dict(warp_trilinear=11, max_pool_2x_bwd=4, warp_trilinear_bwd=6,
                 warp_labels_soft_hard=3, warp_labels_bwd=1, flow_head=4)
 
@@ -38,7 +41,8 @@ FORWARDS = {
     "w256_int8": (dict(W256, quantize="int8"), 1, dict(FLAGSHIP_FWD, **INT8)),
     "flagship_slabs2": ({}, 2, SLABS2_FWD),
     "w256_int8_slabs2": (dict(W256, quantize="int8"), 2,
-                         dict(SLABS2_FWD, conv3_int8=18, conv3_int8_launch=18)),
+                         dict(SLABS2_FWD, conv3_int8=18, conv3_int8_launch=18, bias_lrelu=0,
+                              bias_lrelu_launch=0)),
     "int_steps7": (dict(int_steps=7), 1,
                    dict(FLAGSHIP_FWD, warp_trilinear=7, self_warp_add_launch=7)),
     # the field at full resolution: K2's general warp moves the image, no K3
@@ -46,13 +50,14 @@ FORWARDS = {
                  dict(FLAGSHIP_FWD, warp_trilinear=6, warp_up2x=0, warp_up2x_launch=0,
                       warp_launch=1)),
     "three_levels": (dict(enc=(64,) * 3, dec=(64,) * 5), 1,
-                     dict(FLAGSHIP_FWD, up_cat=2, up_cat_launch=2)),
-    # svf_res 1: the decoder reads enc_0's full-res activation, so no K1, and
-    # every level upsamples
+                     dict(FLAGSHIP_FWD, up_cat=2, up_cat_launch=2, bias_lrelu=7,
+                          bias_lrelu_launch=7)),
+    # svf_res 1: the decoder reads enc_0's full-res activation, so no K1 (enc_0
+    # a library conv, on K11), and every level upsamples
     "svf_res1": (dict(svf_res=1, int_res=1), 1,
                  dict(FLAGSHIP_FWD, conv3_lrelu_pool=0, conv3_lrelu_pool_launch=0,
                       warp_trilinear=6, warp_up2x=0, warp_up2x_launch=0, warp_launch=1,
-                      up_cat=4, up_cat_launch=4)),
+                      up_cat=4, up_cat_launch=4, bias_lrelu=10, bias_lrelu_launch=10)),
 }
 
 
