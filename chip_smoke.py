@@ -44,7 +44,8 @@ Phases (any failure exits non-zero):
      6b. the same moving scan rotated 6 degrees about z and shifted 2 mm: the
          oblique linear preprocessing and the oblique cubic spline;
      6c. ``use_subvol`` (tiles of 80x80x96, batches of 4) on the phase-4
-         pair, and the blend's time;
+         pair through ``Registrar.register_tensors``, its launches those the
+         registrar states, and the blend's time;
      6d. ``bids_two_steps`` through its argv on 6b's pair (model 1
          ``learned_model1``, model 2 ``learned_ref``, composition on the
          image grid), and the composition's time;
@@ -1590,11 +1591,14 @@ def real_scan_phases(dev, timer, rehearsal, cfg, params, fx_np, mov_np, tmp):
     print(f"#   6c: {len(coords)} tiles of {tile} in chunks of {reg_k.max_batch}; timings (s) "
           f"{json.dumps(outs['kernels']['timings'])}")
     finite_files(outs["kernels"]["paths"].values())
-    launched("6c", counts["6c"], reg_k.model.kernel_launches(), rehearsal)
-    chunks = -(-len(coords) // reg_k.max_batch)
+    # Registrar.register_tensors: each chunk of tiles without a moved image
+    # (no K3), then one general warp (K2) of the whole volume
+    want_6c = reg_k.register_launches(fx_np.shape, cfg_sub)
+    launched("6c", counts["6c"], want_6c, rehearsal)
     if not rehearsal:
-        check(counts["6c"]["conv3_lrelu_pool"] == chunks and counts["6c"]["warp_up2x"] == chunks,
-              f"6c: K1 and K3 should run once per chunk of tiles ({chunks}): {counts['6c']}")
+        check(all(counts["6c"][k] == want_6c[k] for k in counts["6c"]),
+              f"6c: the tiled registration should launch what the registrar states "
+              f"({want_6c}): {counts['6c']}")
     numbers["6c"] = kernels_vs_plain("6c", outs["kernels"], outs["plain"])
     numbers["6c"]["timings"] = outs["kernels"]["timings"]
     half_tile = tuple(s // 2 for s in tile)

@@ -11,7 +11,8 @@ Counterpart of ``multimodal_registration_tpu/infer/cascade.py``
     ``cascade_compose_res`` 'full' each step's tiles are blended and the two
     fields composed on the image grid, with 'int' the tiles are composed
     one by one and then blended;
-  * subvolumes, nearest: blend ``warp1``, warp the volume, preprocess the
+  * subvolumes, nearest: model 1 through :meth:`Registrar.register_tensors`
+    (tiles cut, blended and applied on the device), preprocess the
     moved volume again (a second tiling), model 2 on its tiles, blend
     ``warp2``, compose the two fields;
   * the postprocess of the single-model path.
@@ -77,13 +78,7 @@ def register_two_steps(cfg: InferenceConfig, reg1: Registrar, reg2: Registrar,
                            device=dev)
 
     if not cfg.use_subvol:
-        moved1_b, warp1_b = reg1.predict_tensors(mov_data[None], fx_data[None])
-        warp1 = warp1_b[0]
-        scale = 1 if warp1.shape[0] == pre.model_in_shape[0] else 2
-        if warp_interp == "linear":
-            moved1 = moved1_b[0]
-        else:
-            moved1 = apply_warp(mov_data, warp1, "nearest", rescale=scale, device=dev, impl=impl)
+        moved1, warp1, scale = reg1.register_tensors(mov_data, fx_data, cfg)
         moved2_b, warp2_b = reg2.predict_tensors(moved1[None], fx_data[None])
         warp_data, scale = _compose_final(cfg, warp1, warp2_b[0], scale, full_shape, impl)
         if warp_interp == "linear":
@@ -108,13 +103,10 @@ def register_two_steps(cfg: InferenceConfig, reg1: Registrar, reg2: Registrar,
             warp_data, scale = blend(compose_fields_batch(warp1_t, warp2_t, impl=impl), pre)
         moved = apply_warp(mov_data, warp_data, "linear", rescale=scale, device=dev, impl=impl)
     else:
-        fx_tiles, mov_tiles = tiles_of(pre)
-        _, warp1_t = reg1.predict_tensors(mov_tiles, fx_tiles)
-        warp1_full, scale = blend(warp1_t, pre)
+        moved1, warp1_full, scale = reg1.register_tensors(mov_data, fx_data, cfg)
+        moved1 = moved1.cpu().numpy()
         nifti.save(nifti.NiftiImage(warp1_full.cpu().numpy(), pre.fixed.affine),
                    f"{mov_stem}_first_proc_field_to_{fx_contrast}.nii.gz")
-        moved1 = apply_warp(mov_data, warp1_full, "nearest", rescale=scale, device=dev,
-                            impl=impl)
         nifti.save(nifti.NiftiImage(moved1, pre.fixed.affine),
                    f"{mov_stem}_proc_first_reg_to_{fx_contrast}.nii.gz")
         # the moved volume is preprocessed again and tiled anew

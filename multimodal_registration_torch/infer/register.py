@@ -5,10 +5,12 @@ Counterpart of ``multimodal_registration_tpu/infer/register.py``, with the
 same output-file names (``*_proc``, ``*_proc_reg_to_<CONTRAST>``,
 ``*_proc_field_to_<CONTRAST>`` with NIfTI intent 1007, and the moved image
 and field on the original moving grid), the same RAI export of the field and
-the same ``timings`` keys. With ``use_subvol`` the tiles go through the
-model in chunks of ``max_batch`` and their fields are blended on the device
-(:mod:`infer.blend`). Everything runs on ``cuda`` unless the ``Registrar``
-was built with ``device="cpu"``; a ``Registrar`` built with
+the same ``timings`` keys. :meth:`Registrar.register_tensors` registers one
+pair already on the device as the config says; with ``use_subvol`` it cuts
+the tiles on the device, runs them through the model in chunks of
+``max_batch``, blends their fields (:mod:`infer.blend`) and warps the whole
+moving volume, and ``register()`` calls it. Everything runs on ``cuda``
+unless the ``Registrar`` was built with ``device="cpu"``; a ``Registrar`` built with
 ``impl="plain"`` runs every kernel's plain version instead (the comparison
 of ``chip_smoke.py``). With ``quantize: "int8"`` the registrar takes its
 activation scales from ``quant_scales`` or calibrates them on the first
@@ -27,7 +29,7 @@ import torch
 from multimodal_registration_torch.device import resolve_device
 from multimodal_registration_torch.infer.blend import blend_subvol_fields
 from multimodal_registration_torch.infer.config import InferenceConfig
-from multimodal_registration_torch.infer.preprocess import preprocess
+from multimodal_registration_torch.infer.preprocess import preprocess, subvol_grid
 from multimodal_registration_torch.models import quantize as qmod
 from multimodal_registration_torch.models.vxm_dense import VxmConfig, VxmDense
 from multimodal_registration_torch.models.weights import params_from_jax
@@ -86,7 +88,10 @@ class Registrar:
     their plain versions). int8 scales: ``quant_scales`` (flat, as
     ``models/quantize.py::load_scales`` gives them) or, when None, calibrated
     on the first chunk predicted (one full-precision forward; every output
-    comes from the int8 path) and written to ``quant_sidecar``."""
+    comes from the int8 path) and written to ``quant_sidecar``.
+    ``tile_counts`` adds up the tiles :meth:`register_tensors` registered
+    (``tiles``) and the forward slots they took, padding included
+    (``slots``)."""
 
     def __init__(self, cfg: InferenceConfig, params: dict, max_batch: int = 4,
                  device=None, svf_smooth_sigma: float | None = None, impl=None,
@@ -102,6 +107,11 @@ class Registrar:
         self.quant_sidecar = quant_sidecar
         if self.vxm_cfg.quantize and quant_scales is not None:
             self.model.set_quant_scales(quant_scales)
+        self.tile_counts = {"tiles": 0, "slots": 0}
+
+    def _chunk(self, batch: int) -> int:
+        """Pairs a forward takes when ``batch`` pairs are predicted."""
+        return min(self.max_batch, batch)
 
     def _ensure_scales(self, m, f):
         if not self.vxm_cfg.quantize or self.quant_scales is not None:
@@ -114,15 +124,17 @@ class Registrar:
             persist_quant_sidecar(self.quant_sidecar, self.quant_scales)
 
     @torch.inference_mode()
-    def predict_tensors(self, mov, fx):
+    def predict_tensors(self, mov, fx, with_moved: bool = True):
         """Batched predict on ``(B, X, Y, Z)`` arrays or tensors -> ``(moved,
         warp)`` on the device: ``(B, X, Y, Z)`` and the int-res field ``(B,
-        x, y, z, 3)``."""
+        x, y, z, 3)``. With ``with_moved=False`` the forward computes
+        neither the moved images nor the full-res fields, and ``moved`` is
+        None."""
         with span("registrar.predict_tensors"):
             with span("registrar.to_device"):
                 mov, fx = on_device(mov, self.device), on_device(fx, self.device)
             B = mov.shape[0]
-            chunk = min(self.max_batch, B)
+            chunk = self._chunk(B)
             moved_parts, warp_parts = [], []
             for s in range(0, B, chunk):
                 m, f = mov[s: s + chunk], fx[s: s + chunk]
@@ -131,10 +143,75 @@ class Registrar:
                     pad = torch.zeros((chunk - n, *m.shape[1:]), device=self.device)
                     m, f = torch.cat([m, pad]), torch.cat([f, pad])
                 self._ensure_scales(m, f)
-                out = self.model(m[..., None], f[..., None], impl=self.impl)
-                moved_parts.append(out["moved"][:n, ..., 0])
+                out = self.model(m[..., None], f[..., None], impl=self.impl,
+                                 with_moved=with_moved, with_fullres=with_moved)
+                if with_moved:
+                    moved_parts.append(out["moved"][:n, ..., 0])
                 warp_parts.append(out["warp"][:n])
-            return torch.cat(moved_parts), torch.cat(warp_parts)
+            return (torch.cat(moved_parts) if with_moved else None), torch.cat(warp_parts)
+
+    @torch.inference_mode()
+    def register_tensors(self, mov, fx, cfg: InferenceConfig | None = None):
+        """Register one ``(X, Y, Z)`` pair (arrays or tensors) as the config
+        says (``cfg``'s ``use_subvol``, tiling and interpolation; default: the
+        registrar's) -> ``(moved, field, scale)`` on the device: the moved volume
+        ``(X, Y, Z)``, the field at ``1/scale`` resolution and ``scale``.
+        Without ``use_subvol``: :meth:`predict_tensors` of the pair (with
+        nearest interpolation the volume warped again by the field). With
+        it, nothing leaves the device: the tiles of
+        :func:`infer.preprocess.subvol_grid` are cut, their fields predicted in chunks of ``max_batch`` without
+        moved images, blended (:func:`blend_tiles`), and the whole moving
+        volume is warped by the blended field (:func:`warp_volume`)."""
+        with span("registrar.register_tensors"):
+            cfg = cfg or self.cfg
+            mov, fx = on_device(mov, self.device), on_device(fx, self.device)
+            interp = warp_interp_of(cfg)
+            if not cfg.use_subvol:
+                moved, warp = self.predict_tensors(mov[None], fx[None])
+                warp = warp[0]
+                scale = 1 if warp.shape[0] == mov.shape[0] else 2
+                if interp == "linear":
+                    return moved[0], warp, scale
+                with span("registrar.warp_volume"):
+                    return warp_volume(mov, warp, interp, scale, self.impl), warp, scale
+            tile, coords = subvol_grid(cfg, tuple(mov.shape))
+            with span("registrar.cut"):
+                cuts = [tuple(slice(co[2 * a], co[2 * a + 1]) for a in range(3))
+                        for co in coords]
+                mov_t = torch.stack([mov[c] for c in cuts])
+                fx_t = torch.stack([fx[c] for c in cuts])
+            _, warps = self.predict_tensors(mov_t, fx_t, with_moved=False)
+            chunk = self._chunk(len(coords))
+            self.tile_counts["tiles"] += len(coords)
+            self.tile_counts["slots"] += -(-len(coords) // chunk) * chunk
+            with span("registrar.blend"):
+                field, scale = blend_tiles(warps, coords, mov.shape, tile)
+            with span("registrar.warp_volume"):
+                moved = warp_volume(mov, field, interp, scale, self.impl)
+            return moved, field, scale
+
+    def register_launches(self, shape, cfg: InferenceConfig | None = None) -> dict:
+        """What one :meth:`register_tensors` of a pair of ``shape`` launches
+        on the card once the int8 scales are set (as
+        ``VxmDense.kernel_launches``): with ``use_subvol`` each chunk's
+        forward without a moved image, and one general warp (K2) of the
+        volume; without it the forward, and K2 once more with nearest
+        interpolation."""
+        cfg = cfg or self.cfg
+        if not cfg.use_subvol:
+            out = self.model.kernel_launches()
+            chunks = 1
+            extra = int(warp_interp_of(cfg) != "linear")
+        else:
+            n = len(subvol_grid(cfg, tuple(shape))[1])
+            chunks = -(-n // self._chunk(n))
+            out = self.model.kernel_launches(with_moved=False)
+            extra = 1
+        out = {k: chunks * v for k, v in out.items()}
+        if extra:
+            out["warp_trilinear"] += 1
+            out["warp_launch"] = out.get("warp_launch", 0) + 1
+        return out
 
     def predict(self, mov, fx):
         """:meth:`predict_tensors` as numpy arrays on the host."""
@@ -144,17 +221,23 @@ class Registrar:
                 return moved.cpu().numpy(), warp.cpu().numpy()
 
 
+def warp_volume(vol: torch.Tensor, field: torch.Tensor, interp: str, rescale: int = 1,
+                impl=None) -> torch.Tensor:
+    """``vxm.networks.Transform(rescale=...)`` parity on the device: upsample
+    the field by ``rescale`` (scaling vectors), then warp ``vol`` by it."""
+    if rescale != 1:
+        field = rescale_field(field, int(rescale), out_shape=tuple(vol.shape[:3]))
+    return device_warp(vol, field, interp=interp, impl=impl)
+
+
 @torch.inference_mode()
 def apply_warp(vol, field, interp: str, rescale: int = 1, device=None,
                impl=None) -> np.ndarray:
-    """``vxm.networks.Transform(rescale=...)`` parity: upsample the field by
-    ``rescale`` (scaling vectors), then warp. ``vol`` and ``field`` are
-    arrays or tensors; the result is on the host."""
+    """:func:`warp_volume` of arrays or tensors on ``device``; the result
+    on the host."""
     dev = resolve_device(device)
-    v, f = on_device(vol, dev), on_device(field, dev)
-    if rescale != 1:
-        f = rescale_field(f, int(rescale), out_shape=tuple(v.shape[:3]))
-    return device_warp(v, f, interp=interp, impl=impl).cpu().numpy()
+    return warp_volume(on_device(vol, dev), on_device(field, dev), interp, rescale,
+                       impl).cpu().numpy()
 
 
 def _upsample2x_host(v: np.ndarray) -> np.ndarray:
@@ -275,29 +358,10 @@ def tiles_of(pre):
 
 
 def _infer_fields_single(cfg, registrar, pre):
-    """Run the model; return (moved_proc, warp_data, scale)."""
-    warp_interp = warp_interp_of(cfg)
-    mov_data = pre.moving.get_fdata()
-    fx_data = pre.fixed.get_fdata()
-    dev, impl = registrar.device, registrar.impl
-    if not cfg.use_subvol:
-        moved_b, warp_b = registrar.predict(mov_data[None], fx_data[None])
-        warp_data = warp_b[0]
-        scale = 1 if warp_data.shape[0] == pre.model_in_shape[0] else 2
-        if warp_interp == "linear":
-            moved = moved_b[0]
-        else:
-            moved = apply_warp(mov_data, warp_data, "nearest", rescale=scale, device=dev,
-                               impl=impl)
-        return moved, warp_data, scale
-
-    # subvolumes: the tiles in chunks of max_batch, blended on the device
-    fx_tiles, mov_tiles = tiles_of(pre)
-    _, warps = registrar.predict_tensors(mov_tiles, fx_tiles)
-    warp_data, scale = blend_tiles(warps, pre.subvol_coords, mov_data.shape,
-                                   pre.model_in_shape, device=dev)
-    moved = apply_warp(mov_data, warp_data, warp_interp, rescale=scale, device=dev, impl=impl)
-    return moved, warp_data.cpu().numpy(), scale
+    """Run the model; return (moved_proc, warp_data, scale) on the host."""
+    moved, warp_data, scale = registrar.register_tensors(pre.moving.get_fdata(),
+                                                         pre.fixed.get_fdata(), cfg)
+    return moved.cpu().numpy(), warp_data.cpu().numpy(), scale
 
 
 def register(cfg: InferenceConfig, registrar: Registrar, fx_im_path: str, mov_im_path: str,

@@ -27,7 +27,8 @@ from multimodal_registration_torch.parallel.spatial import calibrate_slabs, forw
 class ShardedRegistrar:
     """Registration forward over a ``(data, space)`` mesh, with the
     :class:`Registrar`'s interface (``device``, ``impl``,
-    ``predict_tensors``, ``predict``); ``device`` is the mesh's first.
+    ``predict_tensors``, ``register_tensors``, ``predict``); ``device`` is
+    the mesh's first.
 
     Accepts any batch size: it is padded with zeros up to a multiple of the
     ``data`` axis and the pad is cropped from the outputs. A chunk holds
@@ -57,6 +58,18 @@ class ShardedRegistrar:
         self.quant_sidecar = quant_sidecar
         if self.vxm_cfg.quantize and quant_scales is not None:
             self._set_scales(quant_scales)
+        self.tile_counts = {"tiles": 0, "slots": 0}
+
+    # the tiles of use_subvol go through the mesh as any batch does
+    register_tensors = Registrar.register_tensors
+
+    def _chunk(self, batch: int) -> int:
+        """Pairs a chunk takes when ``batch`` pairs are predicted: ``data *
+        max(1, max_batch // space)``, 1/space as many rows per forward, as
+        the JAX registrar bounds its activations."""
+        space, data = self.mesh.shape["space"], self.mesh.shape["data"]
+        chunk = data * max(1, self.max_batch // max(1, space))
+        return min(chunk, max(data, batch + (-batch) % data))
 
     def _set_scales(self, scales) -> None:
         for m in self.models.values():
@@ -85,24 +98,21 @@ class ShardedRegistrar:
         return self._fallback
 
     @torch.inference_mode()
-    def predict_tensors(self, mov, fx, strict: bool = False):
+    def predict_tensors(self, mov, fx, with_moved: bool = True, strict: bool = False):
         """Batched predict on ``(B, X, Y, Z)`` arrays or tensors -> ``(moved,
         warp)`` on :attr:`device`, as :meth:`Registrar.predict_tensors`. An X
         dim not divisible by ``space * 16`` falls back to one device (raises
         instead when ``strict``)."""
-        space, data = self.mesh.shape["space"], self.mesh.shape["data"]
+        space = self.mesh.shape["space"]
         mov, fx = on_device(mov, self.device), on_device(fx, self.device)
         if mov.shape[1] % (space * 16):
             msg = (f"volume X dim {mov.shape[1]} not divisible by space axis ({space}) x 16")
             if strict:
                 raise ValueError(msg)
             warnings.warn(msg + " — falling back to single-device forward")
-            return self._single_device().predict_tensors(mov, fx)
+            return self._single_device().predict_tensors(mov, fx, with_moved=with_moved)
         B = mov.shape[0]
-        # max_batch pairs per data row, split over space devices: 1/space as
-        # many rows per forward, as the JAX registrar bounds its activations
-        chunk = data * max(1, self.max_batch // max(1, space))
-        chunk = min(chunk, max(data, B + (-B) % data))
+        chunk = self._chunk(B)
         moved_parts, warp_parts = [], []
         for s in range(0, B, chunk):
             m, f = mov[s: s + chunk], fx[s: s + chunk]
@@ -112,11 +122,12 @@ class ShardedRegistrar:
                 m, f = torch.cat([m, pad]), torch.cat([f, pad])
             rows = self._rows(m, f)
             self._ensure_scales(rows)
-            outs = [forward_slabs(self.models, devs, mr, fr, impl=self.impl)
-                    for devs, mr, fr in rows]
-            moved_parts.append(gather([o["moved"] for o in outs], self.device)[:n, ..., 0])
+            outs = [forward_slabs(self.models, devs, mr, fr, impl=self.impl,
+                                  with_moved=with_moved) for devs, mr, fr in rows]
+            if with_moved:
+                moved_parts.append(gather([o["moved"] for o in outs], self.device)[:n, ..., 0])
             warp_parts.append(gather([o["warp"] for o in outs], self.device)[:n])
-        return torch.cat(moved_parts), torch.cat(warp_parts)
+        return (torch.cat(moved_parts) if with_moved else None), torch.cat(warp_parts)
 
     def predict(self, mov, fx, strict: bool = False):
         """:meth:`predict_tensors` as numpy arrays on the host."""

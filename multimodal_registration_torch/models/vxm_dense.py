@@ -136,15 +136,17 @@ class VxmDense(nn.Module):
         return {k: np.float32(b.recorded.item()) for k, b in self.quant_blocks().items()
                 if b.recorded is not None}
 
-    def kernel_launches(self, slabs: int = 1) -> dict:
+    def kernel_launches(self, slabs: int = 1, with_moved: bool = True) -> dict:
         """What one inference :meth:`forward` launches on the card, its U-Net
         and head on ``slabs`` X slabs (``parallel/spatial.py``): by kernel,
         every one of ``kernels.KERNELS``, and by C entry, those launched. K1
         runs enc_0 when the decoder skips its full resolution; K8 each
         quantizable conv out of calibration; K11 each other conv, the library's
-        (in bf16 or float32)."""
+        (in bf16 or float32). ``with_moved=False``: a forward that makes no
+        moved image, so neither K3 nor K2's general warp."""
         unet, steps = self.unet, self.cfg.int_steps
         half = int(self.cfg.int_res == 2)
+        moved = int(with_moved)
         fused_first = unet.nb_upsample_skips >= 1
         int8 = not self.quant_calibrate
         k1 = slabs * int(fused_first)
@@ -154,10 +156,12 @@ class VxmDense(nn.Module):
                    if not (name == "enc_0" and fused_first or block.quantizable and int8)]
         k11 = slabs * len(library) * int(unet.dtype in BIAS_LRELU_DTYPES)
         counts = dict.fromkeys((k.name for k in kernels.KERNELS), 0)
-        counts.update(conv3_lrelu_pool=k1, warp_trilinear=steps + 1 - half, warp_up2x=half,
-                      conv3_int8=k8, flow_head=slabs, up_cat=k10, bias_lrelu=k11)
+        counts.update(conv3_lrelu_pool=k1, warp_trilinear=steps + moved * (1 - half),
+                      warp_up2x=moved * half, conv3_int8=k8, flow_head=slabs, up_cat=k10,
+                      bias_lrelu=k11)
         entries = {"conv3_lrelu_pool_launch": k1, "self_warp_add_launch": steps,
-                   "warp_launch": 1 - half, "warp_up2x_launch": half, "conv3_int8_launch": k8,
+                   "warp_launch": moved * (1 - half), "warp_up2x_launch": moved * half,
+                   "conv3_int8_launch": k8,
                    "flow_head_fwd_launch": slabs, "up_cat_launch": k10, "bias_lrelu_launch": k11}
         return {**counts, **{e: n for e, n in entries.items() if n}}
 

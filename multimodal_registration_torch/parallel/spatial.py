@@ -81,15 +81,18 @@ def unet_slabs(models: dict, devices, moving, fixed, impl=None) -> list:
     return unet.walk(split_slabs(x, devices), layers, unet.nb_upsample_skips >= 1)
 
 
-def forward_slabs(models: dict, devices, moving, fixed, impl=None) -> dict:
+def forward_slabs(models: dict, devices, moving, fixed, impl=None,
+                  with_moved: bool = True) -> dict:
     """:meth:`VxmDense.forward` of ``moving``, ``fixed`` ``(B, X, Y, Z, 1)``
     on the first of ``devices``, its U-Net and flow head on X slabs over
-    ``devices``; the outputs on the first device."""
+    ``devices``; the outputs on the first device (``with_moved=False``:
+    neither the moved image nor the full-res field)."""
     home = devices[0]
     feat = unet_slabs(models, devices, moving, fixed, impl)
     svf = gather([models[d].flow_head(p, impl=impl)[:, 1:-1]
                   for d, p in zip(devices, with_halo(feat, 1))], home, dim=1)
-    return models[home].tail(moving, svf, impl=impl)
+    return models[home].tail(moving, svf, impl=impl, with_moved=with_moved,
+                             with_fullres=with_moved)
 
 
 def calibrate_slabs(models: dict, rows, margin: float = 1.25, impl=None) -> dict:

@@ -731,6 +731,30 @@ def test_a_forward_launches_what_the_model_states(cuda_device, case):
     assert got == model.kernel_launches(slabs)
 
 
+@pytest.mark.parametrize("res", [2, 1])
+def test_a_tiled_registration_launches_what_the_registrar_states(cuda_device, res):
+    """``Registrar.register_tensors`` with ``use_subvol`` (18 tiles of 32^3
+    of a 64x64x48 pair, 5 chunks of 4), counted by kernel and by C entry,
+    against ``Registrar.register_launches``: the chunks' forwards without a
+    moved image and one general warp of the volume, with the field at half
+    and at full resolution."""
+    from multimodal_registration_torch.infer.config import InferenceConfig
+    from multimodal_registration_torch.infer.register import Registrar, vxm_config_from
+    from multimodal_registration_torch.models.vxm_dense import VxmDense
+
+    cfg = InferenceConfig.from_dict(dict(enc=[16] * 4, dec=[16] * 6, int_res=res, svf_res=res,
+                                         use_subvol=True, subvol_size=[32, 32, 32]))
+    params = VxmDense(vxm_config_from(cfg), device=cuda_device).state_dict()
+    reg = Registrar(cfg, params, max_batch=4, device=cuda_device)
+    mov, fx = (torch.rand((64, 64, 48), device=cuda_device) for _ in range(2))
+    kernels.reset_launch_counts()
+    moved, field, scale = reg.register_tensors(mov, fx)
+    got = {**kernels.launch_counts(), **kernels.entry_launch_counts()}
+    assert got == reg.register_launches(mov.shape)
+    assert reg.tile_counts == {"tiles": 18, "slots": 20}
+    assert scale == res and moved.shape == mov.shape and bool(torch.isfinite(field).all())
+
+
 @pytest.mark.parametrize("batch, replicas", [(1, 1), (2, 1), (2, 2)])
 def test_a_training_step_launches_what_the_trainer_states(cuda_device, batch, replicas):
     """A counted training step against ``Trainer.step_launches`` at 32^3, 4

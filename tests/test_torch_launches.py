@@ -68,6 +68,24 @@ def test_forward_states_its_launches(case):
     assert model.kernel_launches(slabs) == _table(**{k: v for k, v in want.items() if v})
 
 
+# a forward that makes no moved image (the tiles of use_subvol): no K3, and
+# with the field at full resolution no general warp either
+WITHOUT_MOVED = {
+    "flagship": ({}, dict(FLAGSHIP_FWD, warp_up2x=0, warp_up2x_launch=0)),
+    "int_res1": (dict(int_res=1), dict(FLAGSHIP_FWD, warp_up2x=0, warp_up2x_launch=0)),
+    "w256_int8": (dict(W256, quantize="int8"),
+                  dict(FLAGSHIP_FWD, **INT8, warp_up2x=0, warp_up2x_launch=0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WITHOUT_MOVED))
+def test_a_forward_without_its_moved_image_states_no_warp_of_it(case):
+    over, want = WITHOUT_MOVED[case]
+    model = VxmDense(VxmConfig(**over), device="meta")
+    assert model.kernel_launches(with_moved=False) == _table(
+        **{k: v for k, v in want.items() if v})
+
+
 def test_a_calibrating_int8_forward_states_no_k8():
     model = VxmDense(VxmConfig(**W256, quantize="int8"), device="meta", quant_calibrate=True)
     assert model.kernel_launches() == _table(**FLAGSHIP_FWD)
