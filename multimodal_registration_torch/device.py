@@ -6,6 +6,12 @@ import contextlib
 
 import torch
 
+from multimodal_registration_torch.utils.graphs import held
+
+# (values, dtype, device) -> the values as a tensor on the device
+_CONSTANTS: dict = held({})
+_CONSTANTS_MAX = 32  # a device's; the oldest goes first
+
 
 @contextlib.contextmanager
 def full_fp32_convs():
@@ -34,6 +40,22 @@ def full_fp32_matmuls():
         yield
     finally:
         matmul.allow_tf32 = old
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    values, type and device and kept; callers must not write to it. Made on
+    every call it would be a copy from the host's pageable memory, which
+    waits for the stream and cannot be captured in a CUDA graph."""
+    device = torch.device(device)
+    key = (values, dtype, device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        mine = [k for k in _CONSTANTS if k[2] == device]
+        if len(mine) >= _CONSTANTS_MAX:
+            del _CONSTANTS[mine[0]]
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
 
 
 def resolve_device(device=None) -> torch.device:

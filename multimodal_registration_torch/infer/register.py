@@ -37,6 +37,7 @@ from multimodal_registration_torch.ops.resample import affine_resample
 from multimodal_registration_torch.ops.resize import rescale_field
 from multimodal_registration_torch.ops.warp import warp as device_warp
 from multimodal_registration_torch.utils import nifti
+from multimodal_registration_torch.utils.graphs import ForwardGraphs, static_copy
 from multimodal_registration_torch.utils.profiling import span
 
 
@@ -91,7 +92,15 @@ class Registrar:
     comes from the int8 path) and written to ``quant_sidecar``.
     ``tile_counts`` adds up the tiles :meth:`register_tensors` registered
     (``tiles``) and the forward slots they took, padding included
-    (``slots``)."""
+    (``slots``).
+
+    On the card with ``impl=None`` the forwards of :meth:`predict_tensors`
+    run as CUDA graphs once the int8 scales are set (``utils/graphs.py::
+    ForwardGraphs``): a shape's first forward eager, its second captured,
+    later ones replayed. Its key is the chunk's shape and type,
+    ``with_moved``, the scales' version and the stream; a change of the
+    parameters or the scales drops every key. ``graph_counts`` counts the
+    forwards by how they ran (``captures``, ``replays``, ``eager``)."""
 
     def __init__(self, cfg: InferenceConfig, params: dict, max_batch: int = 4,
                  device=None, svf_smooth_sigma: float | None = None, impl=None,
@@ -108,6 +117,8 @@ class Registrar:
         if self.vxm_cfg.quantize and quant_scales is not None:
             self.model.set_quant_scales(quant_scales)
         self.tile_counts = {"tiles": 0, "slots": 0}
+        self.graphs = ForwardGraphs(self.device, self.model.parameters)
+        self.graph_counts = self.graphs.counts
 
     def _chunk(self, batch: int) -> int:
         """Pairs a forward takes when ``batch`` pairs are predicted."""
@@ -135,7 +146,7 @@ class Registrar:
                 mov, fx = on_device(mov, self.device), on_device(fx, self.device)
             B = mov.shape[0]
             chunk = self._chunk(B)
-            moved_parts, warp_parts = [], []
+            moved = warp = None
             for s in range(0, B, chunk):
                 m, f = mov[s: s + chunk], fx[s: s + chunk]
                 n = m.shape[0]
@@ -143,12 +154,50 @@ class Registrar:
                     pad = torch.zeros((chunk - n, *m.shape[1:]), device=self.device)
                     m, f = torch.cat([m, pad]), torch.cat([f, pad])
                 self._ensure_scales(m, f)
-                out = self.model(m[..., None], f[..., None], impl=self.impl,
-                                 with_moved=with_moved, with_fullres=with_moved)
+                out = self._forward(m[..., None], f[..., None], with_moved)
+                # copied out: a replay's outputs are overwritten by the next one
+                if warp is None:
+                    warp = out["warp"].new_empty((B, *out["warp"].shape[1:]))
+                    moved = mov.new_empty(mov.shape) if with_moved else None
+                warp.narrow(0, s, n).copy_(out["warp"][:n])
                 if with_moved:
-                    moved_parts.append(out["moved"][:n, ..., 0])
-                warp_parts.append(out["warp"][:n])
-            return (torch.cat(moved_parts) if with_moved else None), torch.cat(warp_parts)
+                    moved.narrow(0, s, n).copy_(out["moved"][:n, ..., 0])
+            return moved, warp
+
+    def _forward(self, m, f, with_moved: bool) -> dict:
+        """The model's forward of one chunk ``(B, X, Y, Z, 1)``, through the
+        registrar's CUDA graphs where they apply."""
+        def forward():
+            mv = static_copy("moving", m) if with_moved else m
+            return self.model(mv, f, impl=self.impl, with_moved=with_moved,
+                              with_fullres=with_moved)
+
+        key = self._graph_key(m, f, with_moved)
+        state = None if key is None else self._graph_state()
+        return self.graphs.run(None if state is None else key, state, forward)
+
+    def _graph_key(self, m, f, with_moved: bool):
+        """The forward's key, or None where graphs do not apply: off the card,
+        with ``impl`` set, outside ``inference_mode``, while the int8 scales
+        are calibrating or missing, or inside another graph's capture."""
+        if (self.device.type != "cuda" or self.impl is not None
+                or not torch.is_inference_mode_enabled()
+                or any(b.calibrating or b.amax is None
+                       for b in self.model.quant_blocks().values())
+                or torch.cuda.is_current_stream_capturing()):
+            return None
+        return (tuple(m.shape), m.dtype, f.dtype, with_moved, self.model.quant_version,
+                torch.cuda.current_stream(self.device).cuda_stream)
+
+    def _graph_state(self):
+        """What every key's graphs read besides their inputs: the scales'
+        version and the parameters' addresses and versions; None for
+        parameters made under ``inference_mode``, whose writes no version
+        counts (no graphs then)."""
+        params = tuple(self.model.parameters())
+        if any(p.is_inference() for p in params):
+            return None
+        return self.model.quant_version, tuple((p.data_ptr(), p._version) for p in params)
 
     @torch.inference_mode()
     def register_tensors(self, mov, fx, cfg: InferenceConfig | None = None):

@@ -19,6 +19,7 @@ its source (another mode of the same function, or a pass that completes it):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,6 +39,7 @@ NVCC_FLAGS = (
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIB_LOCK = threading.Lock()
+_LOCAL = threading.local()  # .diverted: where this thread's counted launches go instead
 BUILD_LOG: dict[str, dict] = {}  # source -> {"seconds", "log", "path"}
 
 
@@ -136,8 +138,12 @@ class Kernel:
             msg = _library(self.source).mmreg_error_string(rc).decode()
             raise RuntimeError(f"{self.name} ({symbol}): CUDA launch failed ({rc}: {msg})")
         if count:
-            self.launches += 1
-            self.entry_launches[symbol] = self.entry_launches.get(symbol, 0) + 1
+            diverted = getattr(_LOCAL, "diverted", None)
+            if diverted is not None:
+                diverted[self, symbol] = diverted.get((self, symbol), 0) + 1
+            else:
+                self.launches += 1
+                self.entry_launches[symbol] = self.entry_launches.get(symbol, 0) + 1
 
     def launch(self, *args) -> None:
         """Launch the kernel's main entry."""
@@ -266,6 +272,27 @@ def launch_counts() -> dict:
 def entry_launch_counts() -> dict:
     """Counted launches by C entry (``symbol``), across every kernel."""
     return {sym: n for k in KERNELS for sym, n in k.entry_launches.items()}
+
+
+@contextlib.contextmanager
+def diverted_launches():
+    """Count the calling thread's launches in the block into the yielded
+    dict, ``{(kernel, symbol): n}``, instead of the counters: a CUDA graph's
+    capture enqueues nothing, its replays run what it recorded
+    (:func:`add_launches`)."""
+    counted = {}
+    _LOCAL.diverted = counted
+    try:
+        yield counted
+    finally:
+        _LOCAL.diverted = None
+
+
+def add_launches(counted: dict) -> None:
+    """Count ``{(kernel, symbol): n}`` as launched (a CUDA graph's replay)."""
+    for (kernel, symbol), n in counted.items():
+        kernel.launches += n
+        kernel.entry_launches[symbol] = kernel.entry_launches.get(symbol, 0) + n
 
 
 def reset_launch_counts() -> None:

@@ -35,6 +35,10 @@ int8 inference (``quant="int8"``): a block whose input has at least
 input; thinner blocks and the fused enc_0 stay in the compute type. In
 calibration mode (``calibrating``) such a block records the running
 ``max|x|`` of its input in float32 and runs the normal conv.
+
+``Unet.forward`` is one segment of a forward captured as CUDA graphs
+(``utils/graphs.py``); :meth:`Unet.walk` itself, which the X slabs of the
+sharded forward call, never is.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from multimodal_registration_torch.ops.conv_pool import conv3_lrelu_pool
 from multimodal_registration_torch.ops.pool import max_pool_2x
 from multimodal_registration_torch.ops.up_cat import upsample_cat
 from multimodal_registration_torch.ops.warp import needs_grad, use_kernel
+from multimodal_registration_torch.utils import graphs
 
 
 def _ncdhw(x):
@@ -140,6 +145,9 @@ class Unet(nn.Module):
         self.out_channels = ch
 
     def forward(self, x, impl=None, pool_tie="equal"):
+        return graphs.segment("unet", self._forward, x, impl, pool_tie)
+
+    def _forward(self, x, impl, pool_tie):
         fused_first = (self.nb_upsample_skips >= 1
                        and not needs_grad(x, *self.parameters()))
         return self.walk(x.to(self.dtype), WholeVolume(self, impl, pool_tie), fused_first)

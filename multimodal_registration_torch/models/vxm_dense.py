@@ -20,6 +20,11 @@ built with ``quant_calibrate=True`` the model runs in full precision and
 records each quantizable conv's running input ``max|x|``
 (:meth:`VxmDense.recorded_scales`), as the JAX ``VxmDense(quant_calibrate=True)``
 does into its ``"quant"`` collection (``models/quantize.py``).
+
+In a forward captured as CUDA graphs (``utils/graphs.py``) the U-Net, the
+head, the rescale and smoothing, the integration and the outputs are its
+segments, each inside the call that runs it eager; the concatenation of
+``moving`` and ``fixed`` goes into the key's buffer.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from multimodal_registration_torch.ops.flow_head import flow_head_conv
 from multimodal_registration_torch.ops.integrate import integrate_svf_batch
 from multimodal_registration_torch.ops.resize import rescale_field
 from multimodal_registration_torch.ops.warp import use_kernel, warp_batch, warp_up2x_batch
+from multimodal_registration_torch.utils import graphs
 from multimodal_registration_torch.utils.profiling import span
 
 
@@ -108,6 +114,7 @@ class VxmDense(nn.Module):
             self.flow.weight.normal_(0.0, 1e-5)
             self.flow.bias.zero_()
         self.quant_calibrate = quant_calibrate
+        self.quant_version = 0  # goes up with each set_quant_scales
 
     def quant_blocks(self) -> dict:
         """Scale key (``unet/<block>/amax``) -> the quantizable ``ConvBlock``."""
@@ -130,6 +137,7 @@ class VxmDense(nn.Module):
         for key, block in self.quant_blocks().items():
             block.amax = None if scales is None or key not in scales else float(
                 np.float32(scales[key]))
+        self.quant_version += 1
 
     def recorded_scales(self) -> dict:
         """What calibration recorded so far, ``{key: numpy float32}``."""
@@ -173,7 +181,7 @@ class VxmDense(nn.Module):
             raise ValueError(
                 f"spatial dims must be multiples of 16 (got {inshape}); the "
                 "preprocessing pads to floor16 shapes")
-        x = torch.cat([moving, fixed], dim=-1)
+        x = graphs.static_cat("x", [moving, fixed], -1)
         with span("vxm.unet"):
             feat = self.unet(x, impl=impl, pool_tie=pool_tie)
         return self.tail(moving, self.flow_head(feat, impl=impl), impl=impl,
@@ -186,11 +194,14 @@ class VxmDense(nn.Module):
         with ``impl="plain"``, the library conv on ``feat.float()`` in full
         float32 (cuDNN would otherwise run it in TF32)."""
         with span("vxm.flow_head"):
-            if use_kernel(feat, impl):
-                return flow_head_conv(feat, self.flow.weight, self.flow.bias)
-            with full_fp32_convs():
-                return _ndhwc(F.conv3d(_ncdhw(feat.float()), self.flow.weight,
-                                       self.flow.bias, padding=1)).contiguous()
+            return graphs.segment("flow_head", self._flow_head, feat, impl)
+
+    def _flow_head(self, feat, impl):
+        if use_kernel(feat, impl):
+            return flow_head_conv(feat, self.flow.weight, self.flow.bias)
+        with full_fp32_convs():
+            return _ndhwc(F.conv3d(_ncdhw(feat.float()), self.flow.weight,
+                                   self.flow.bias, padding=1)).contiguous()
 
     def tail(self, moving: torch.Tensor, svf: torch.Tensor, impl=None,
              with_moved: bool = True, with_fullres: bool = True) -> dict:
@@ -198,45 +209,56 @@ class VxmDense(nn.Module):
         smoothing, integration (K2), the full-res field and the moved image
         (K3). ``moving`` is the forward's input ``(B, X, Y, Z, 1)``."""
         with span("vxm.tail"):
-            cfg = self.cfg
             inshape = tuple(moving.shape[1:4])
-            svf_shape = tuple(int(round(d / cfg.svf_res)) for d in inshape)
-            if tuple(svf.shape[1:4]) != svf_shape:
-                f = svf_shape[0] / svf.shape[1]
-                with span("vxm.rescale"):
-                    svf = torch.stack([rescale_field(v, f, out_shape=svf_shape) for v in svf])
-
-            if cfg.svf_smooth_sigma > 0:
-                with span("vxm.rescale"):
-                    svf = smooth_field_batch(svf, cfg.svf_smooth_sigma)
-
-            int_shape = tuple(int(round(d / cfg.int_res)) for d in inshape)
-            flow = svf
-            if tuple(flow.shape[1:4]) != int_shape:
-                f = int_shape[0] / flow.shape[1]
-                with span("vxm.rescale"):
-                    flow = torch.stack([rescale_field(v, f, out_shape=int_shape) for v in flow])
-
+            svf, flow = graphs.segment("rescale", self._int_res_field, svf, inshape)
             with span("vxm.integrate"):
-                pos_flow = integrate_svf_batch(flow, cfg.int_steps, self.payload_dtype, impl=impl)
-
-            if not (with_fullres or with_moved):
-                flow_fullres = None
-            elif tuple(pos_flow.shape[1:4]) != inshape:
-                factors = tuple(i / c for i, c in zip(inshape, pos_flow.shape[1:4]))
-                with span("vxm.fullres"):
-                    flow_fullres = torch.stack(
-                        [rescale_field(v, factors, out_shape=inshape) for v in pos_flow])
-            else:
-                flow_fullres = pos_flow
-
-            if not with_moved:
-                moved = None
-            else:
-                with span("vxm.warp"):
-                    if tuple(2 * d for d in pos_flow.shape[1:4]) == inshape:
-                        moved = warp_up2x_batch(moving.float(), pos_flow, impl=impl)
-                    else:
-                        moved = warp_batch(moving.float(), flow_fullres, interp="linear",
-                                           impl=impl)
+                pos_flow = integrate_svf_batch(flow, self.cfg.int_steps, self.payload_dtype,
+                                               impl=impl)
+            moved, flow_fullres = graphs.segment(
+                "tail", self._outputs, moving if with_moved else None, pos_flow, inshape,
+                with_moved, with_fullres, impl)
             return {"moved": moved, "warp": pos_flow, "flow_fullres": flow_fullres, "svf": svf}
+
+    def _int_res_field(self, svf, inshape):
+        """``(svf, flow)``: the SVF at ``1/svf_res`` (smoothed if the config says
+        so) and the field to integrate, at ``1/int_res``."""
+        cfg = self.cfg
+        svf_shape = tuple(int(round(d / cfg.svf_res)) for d in inshape)
+        if tuple(svf.shape[1:4]) != svf_shape:
+            f = svf_shape[0] / svf.shape[1]
+            with span("vxm.rescale"):
+                svf = torch.stack([rescale_field(v, f, out_shape=svf_shape) for v in svf])
+
+        if cfg.svf_smooth_sigma > 0:
+            with span("vxm.rescale"):
+                svf = smooth_field_batch(svf, cfg.svf_smooth_sigma)
+
+        int_shape = tuple(int(round(d / cfg.int_res)) for d in inshape)
+        flow = svf
+        if tuple(flow.shape[1:4]) != int_shape:
+            f = int_shape[0] / flow.shape[1]
+            with span("vxm.rescale"):
+                flow = torch.stack([rescale_field(v, f, out_shape=int_shape) for v in flow])
+        return svf, flow
+
+    def _outputs(self, moving, pos_flow, inshape, with_moved, with_fullres, impl):
+        """``(moved, flow_fullres)`` from the integrated field: the full-res
+        field and the moved image (K3), each None where not asked for."""
+        if not (with_fullres or with_moved):
+            flow_fullres = None
+        elif tuple(pos_flow.shape[1:4]) != inshape:
+            factors = tuple(i / c for i, c in zip(inshape, pos_flow.shape[1:4]))
+            with span("vxm.fullres"):
+                flow_fullres = torch.stack(
+                    [rescale_field(v, factors, out_shape=inshape) for v in pos_flow])
+        else:
+            flow_fullres = pos_flow
+
+        if not with_moved:
+            return None, flow_fullres
+        with span("vxm.warp"):
+            if tuple(2 * d for d in pos_flow.shape[1:4]) == inshape:
+                moved = warp_up2x_batch(moving.float(), pos_flow, impl=impl)
+            else:
+                moved = warp_batch(moving.float(), flow_fullres, interp="linear", impl=impl)
+        return moved, flow_fullres

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from multimodal_registration_torch import kernels
 from multimodal_registration_torch.ops.warp import needs_grad, use_kernel
+from multimodal_registration_torch.utils.graphs import held
 from multimodal_registration_torch.utils.profiling import span
 
 _K_CHUNK = 64  # input channels of one k-chunk of the kernel; Cin is padded to a multiple
@@ -202,8 +203,9 @@ class Int8ConvPlan:
         return (self.cp, self.cout, self.cout_pad, *BOX, *self.boxes_xyz, self.n_tiles)
 
 
-# (data_ptr, _version) of w and b, amax, device, stream -> (w, b, matrix, scale, bias)
-_PREPARED: dict = {}
+# (data_ptr, _version) of w and b, amax, device, stream -> (w, b, matrix, scale, bias);
+# a CUDA graph keeps the entries it read (utils/graphs.py::held)
+_PREPARED: dict = held({})
 _PREPARED_MAX = 32  # a device's: the nine int8 convs of each of the cascade's two models
 
 

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from multimodal_registration_torch import kernels
 from multimodal_registration_torch.device import full_fp32_convs
 from multimodal_registration_torch.ops.warp import needs_grad, use_kernel
+from multimodal_registration_torch.utils.graphs import held
 
 _SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on Hopper
 _HALO_TC = 10 * 18 * 18  # halo voxels of a block of the tensor-core kernel
@@ -99,8 +100,9 @@ def window_row_order() -> torch.Tensor:
     return torch.stack([r % 8, v // 4, (v // 2) % 2, v % 2], -1)
 
 
-# (data_ptr, _version) of w and b, compute type, device, stream -> (w, b, matrix, bias)
-_PREPARED: dict = {}
+# (data_ptr, _version) of w and b, compute type, device, stream -> (w, b, matrix, bias);
+# a CUDA graph keeps the entries it read (utils/graphs.py::held)
+_PREPARED: dict = held({})
 _PREPARED_MAX = 8  # a device's
 
 

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from multimodal_registration_torch.device import constant
 from multimodal_registration_torch.ops.warp import warp, warp_batch
 
 
@@ -49,7 +50,7 @@ def smooth_field(field: torch.Tensor, sigma: float, radius: int | None = None) -
     if sigma <= 0:
         return field
     r = int(math.ceil(3.0 * float(sigma))) if radius is None else int(radius)
-    sig = torch.tensor(float(sigma), dtype=torch.float32, device=field.device)
+    sig = constant(float(sigma), torch.float32, field.device)
     norm = _gaussian_blur(torch.ones(field.shape[:3], dtype=torch.float32, device=field.device),
                           sig, r)
     f = field.float().movedim(-1, 0)  # channels lead: the blur is per channel

@@ -9,7 +9,8 @@ output is rounded to it before the add, exactly where the JAX package rounds
 stay float32. Each squaring step is one launch on the card: the fused entry
 of kernel K2 (``ops/warp.py::self_warp_add_batch``), which reads the field
 once, as coordinates and as payload, and equals the cast, the warp, the cast
-back and the add bit for bit.
+back and the add bit for bit. :func:`integrate_svf_batch` is one segment of
+a forward captured as CUDA graphs (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from multimodal_registration_torch.ops.warp import self_warp_add_batch
+from multimodal_registration_torch.utils import graphs
 
 
 def _integrate(vel, int_steps, payload_dtype, impl):
@@ -38,4 +40,4 @@ def integrate_svf(vel: torch.Tensor, int_steps: int = 5, payload_dtype=None,
 def integrate_svf_batch(vel: torch.Tensor, int_steps: int = 5, payload_dtype=None,
                         impl=None) -> torch.Tensor:
     """Batched :func:`integrate_svf` over ``(B, X, Y, Z, 3)`` fields."""
-    return _integrate(vel, int_steps, payload_dtype, impl)
+    return graphs.segment("integrate", _integrate, vel, int_steps, payload_dtype, impl)

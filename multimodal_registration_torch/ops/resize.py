@@ -14,7 +14,7 @@ import functools
 import numpy as np
 import torch
 
-from multimodal_registration_torch.device import full_fp32_matmuls
+from multimodal_registration_torch.device import constant, full_fp32_matmuls
 
 
 @functools.lru_cache(maxsize=128)
@@ -87,4 +87,16 @@ def rescale_field(flow: torch.Tensor, factor, out_shape=None) -> torch.Tensor:
     ``factor`` (``vxm.layers.RescaleTransform`` parity)."""
     f3 = (factor, factor, factor) if np.isscalar(factor) else tuple(factor)
     out = resize(flow, f3, out_shape=out_shape)
-    return out * torch.tensor(f3, dtype=out.dtype, device=out.device)
+    return out * vector_factors(f3, out)
+
+
+def vector_factors(f3: tuple, like: torch.Tensor):
+    """The operand that scales ``like``'s vectors by ``f3``, with the bits of
+    the product by ``torch.tensor(f3, dtype=like.dtype)``: equal factors as one
+    Python number rounded to ``like``'s type, others as a constant on
+    ``like``'s device (:func:`device.constant`). Neither copies from the host
+    on a call."""
+    f3 = tuple(float(f) for f in f3)
+    if f3[0] == f3[1] == f3[2]:
+        return torch.tensor(f3[0], dtype=like.dtype).item()
+    return constant(f3, like.dtype, like.device)

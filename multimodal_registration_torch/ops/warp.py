@@ -55,6 +55,7 @@ from multimodal_registration_torch import kernels
 from multimodal_registration_torch.losses import dice_loss, dice_loss_zeropad
 from multimodal_registration_torch.ops.grid import identity_grid
 from multimodal_registration_torch.ops.resize import rescale_field
+from multimodal_registration_torch.utils.graphs import held
 
 
 def use_kernel(t: torch.Tensor, impl) -> bool:
@@ -125,7 +126,7 @@ def needs_grad(*tensors) -> bool:
 
 
 # (device, stream, numel) -> [float32 zeros, in use]: K5's sums
-_SCRATCH: dict = {}
+_SCRATCH: dict = held({})
 _SCRATCH_MAX = 8  # a device's: the shapes of a run are few; drop the oldest, do not hoard
 
 

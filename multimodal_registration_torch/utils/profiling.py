@@ -88,14 +88,57 @@ class _Span:
         return False
 
 
+class _Listened:
+    """A span that also tells the thread's listener where it opens and
+    closes (:func:`listening`)."""
+
+    __slots__ = ("name", "listener", "inner")
+
+    def __init__(self, name: str, listener):
+        self.name, self.listener = name, listener
+
+    def __enter__(self):
+        self.listener.enter(self.name)
+        self.inner = _Span(self.name) if _profiler_enabled() else _OFF
+        self.inner.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self.inner.__exit__(*exc)
+        finally:
+            self.listener.exit(self.name)
+        return False
+
+
 def span(name: str):
     """A context over one layer's work named ``name``: while a torch profiler
     records, a range of the profiler's function scope and one record of
     :func:`spans`; otherwise one shared no-op context. Spans nest by thread; the spans of
-    one call or step share the ``root_id`` of the outermost."""
+    one call or step share the ``root_id`` of the outermost. Under
+    :func:`listening` the listener hears it open and close, profiler or not."""
+    listener = getattr(_LOCAL, "listener", None)
+    if listener is not None:
+        return _Listened(name, listener)
     if not _profiler_enabled():
         return _OFF
     return _Span(name)
+
+
+@contextlib.contextmanager
+def listening(listener):
+    """In the block, every span of the calling thread calls
+    ``listener.enter(name)`` as it opens and ``listener.exit(name)`` as it
+    closes (``utils/graphs.py`` cuts a captured forward into graphs there);
+    ``None`` leaves the spans as they are."""
+    if listener is None:
+        yield
+        return
+    _LOCAL.listener = listener
+    try:
+        yield
+    finally:
+        _LOCAL.listener = None
 
 
 def spans() -> list:
